@@ -6,28 +6,55 @@ Phases (any failure propagates and the script exits nonzero):
 
 1. device    require a CUDA card; print its name and power limit; pin TF32
              off for matmuls and cuDNN.
-2. build     compile the CUDA tile compositor from
-             ``src/repro_torch/kernels/csrc/rasterize_fwd.cu`` with nvcc.
-3. kernel    hold the kernel against its plain PyTorch versions on the card
+2. build     compile both CUDA kernels, ``rasterize_fwd.cu`` and
+             ``rasterize_bwd.cu`` under ``src/repro_torch/kernels/csrc/``,
+             with nvcc (the two builds run in parallel).
+3. kernels   hold each kernel against its plain PyTorch versions on the card
              (K in {1, 16, 64, 256, 300}, tiles 16x16 and 8x128, dead and
-             saturated splats, 37 tiles) at max abs error <= 1e-5.
+             saturated splats, 37 tiles): the forward at max abs error
+             <= 1e-5, the backward at the reference's saturated-case gate
+             (rtol = atol = 5e-4 against autograd of the plain forward, and
+             2e-4 against the single-sweep emulation), padding columns and
+             dead slots exactly 0; a backward through the dispatcher
+             launches ``rasterize_bwd`` once.
 4. serve     the paper's smallest dataset at full size: the 4,000,000-point
              kingsnake isosurface as a merged splat model, served by
              ``GSRenderServer`` at 1024x1024 with 16x16 tiles (K=64,
              max_batch=8) to a 16-view near/far rig, twice.  The second
              pass must be all cache hits and bit-identical to the first,
              and the kernel must have launched once per dispatch.  A small
-             scene served on the card must match the same server on the CPU.
-5. timing    the kernel and the plain version on the first dispatch's own
-             tile features (V=8, 1024x1024, 16x16 tiles, K=64): agreement,
-             CUDA-event medians, the bound; then the time of each stage of
-             that dispatch.
+             scene served on the card must match the same server on the CPU;
+             then the forward kernel's time on the first dispatch's own
+             tile features and the time of each stage of that dispatch.
+5. train     ``run_pipeline`` on the same 4,000,000-point kingsnake scene:
+             two partitions with 3% ghost halos (capacity x 1.3), 1024x1024
+             images in 4096 16x16 tiles, the auto tier ladder (8, 32, 64),
+             120 steps of one view each over 16 views, densify after steps
+             110 and 120 with a tier re-probe after each.  Cut: 16 views of
+             the paper's 448, and 120 steps; the model and the images are
+             full size.  Every loss finite and falling in each partition,
+             the densify events change the live count, tier overflow goes
+             through ``note_overflow``, bwd launches == fwd launches > 0
+             during training, merged PSNR/SSIM printed.  The same pipeline
+             on a small scene on the card and on the CPU must agree.
+6. timing    one train step's own tier tables (partition 0's initial model,
+             view 0, the first probe's caps): the backward kernel against
+             its plain version on the top tier, the forward at every
+             tier's K, the time of each stage of one step, and a
+             ``torch.profiler`` trace of three steps (device time by
+             kernel, the device's busy share of the window).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
-is ``{"ok": true, "device": {...}}``.
+is ``{"ok": true, "device": {...}}``.  Phase 5 rehearses on the CPU at a
+small size with ``train_phase("cpu", tier="cpu", resolution=32, tile=8,
+K=16, steps=110, n_views=4)``: one densify event, after the last step (on
+a scene of a few thousand splats the 512 children of an event raise the
+loss for some steps, so the loss check would see the jump).
 """
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -41,28 +68,48 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.gs_datasets import get_gs_dataset  # noqa: E402
+from repro_torch.core import pipeline as pipeline_mod  # noqa: E402
+from repro_torch.core import train as train_mod  # noqa: E402
 from repro_torch.core.cameras import Camera, concat, orbital_rig  # noqa: E402
 from repro_torch.core.cameras import select, stack  # noqa: E402
 from repro_torch.core.gaussians import from_points  # noqa: E402
 from repro_torch.core.projection import project  # noqa: E402
+from repro_torch.core.masking import gs_loss  # noqa: E402
+from repro_torch.core.pipeline import PipelineCfg  # noqa: E402
+from repro_torch.core.render import _assign_views  # noqa: E402
+from repro_torch.core.render import rasterize_tiles_tiered  # noqa: E402
+from repro_torch.core.render import tier_tables  # noqa: E402
 from repro_torch.core.render import _composite, assign_tables  # noqa: E402
 from repro_torch.core.render import rasterize_batched  # noqa: E402
 from repro_torch.core.render import resolve_assignment  # noqa: E402
 from repro_torch.core.render import table_features  # noqa: E402
 from repro_torch.core.serving import GSRenderServer, ServeCfg  # noqa: E402
-from repro_torch.core.tiling import TileGrid, gather_features_at  # noqa: E402
+from repro_torch.core.tiling import TierSchedule, TileGrid  # noqa: E402
+from repro_torch.core.tiling import bin_tiles_by_occupancy  # noqa: E402
+from repro_torch.core.tiling import tile_occupancy  # noqa: E402
+from repro_torch.core.tiling import gather_features_at  # noqa: E402
+from repro_torch.core.train import GSTrainCfg, adam_update  # noqa: E402
+from repro_torch.core.train import group_lrs, init_opt  # noqa: E402
 from repro_torch.core.tiling import quantize_pose, splat_features  # noqa: E402
 from repro_torch.core.tiling import tile_origins, untile_image  # noqa: E402
 from repro_torch.data.isosurface import point_cloud_for  # noqa: E402
+from repro_torch import as_numpy  # noqa: E402
 from repro_torch.kernels import ops, rasterize, ref  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 #: cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: operations counted per splat-pixel (see the note in rasterize_fwd.cu)
+#: operations counted per splat-pixel (see the notes in rasterize_fwd.cu
+#: and rasterize_bwd.cu)
 OPS_PER_SPLAT_PIXEL = 27
+BWD_OPS_PER_SPLAT_PIXEL = 85
 TOL = 1e-5
+#: backward gates: the reference's saturated-case tolerance against autograd
+#: of the plain forward (tests/test_kernel_rasterize.py:145), and its
+#: unsaturated one against the single-sweep emulation of the same algorithm
+BWD_TOL = 5e-4
+BWD_EMUL_TOL = 2e-4
 
 
 def log(msg):
@@ -119,8 +166,55 @@ def kernel_phase(device):
             if not err <= TOL:
                 raise AssertionError(f"K={K} tile {th}x{tw}: err {err} > {TOL}")
             worst = max(worst, err)
-    # the dispatcher never takes the plain version on a CUDA tensor, and the
-    # kernel's backward is not faked by autograd through the plain version
+    return worst
+
+
+def bwd_gate(got, want, tol):
+    """Max over elements of |got - want| / (tol + tol * |want|): <= 1 is
+    ``allclose(got, want, rtol=tol, atol=tol)``."""
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
+def bwd_kernel_phase(device):
+    """The backward kernel against its plain version (autograd of the plain
+    forward) and the single-sweep emulation over the sweep -> max abs error
+    against the plain version."""
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for th, tw in ((16, 16), (8, 128)):
+        for K in (1, 16, 64, 256, 300):
+            feats, origins = tile_inputs(rng, 37, K, th, tw, device, dead_frac=0.25)
+            out = rasterize.rasterize_fwd(feats, origins, tile_h=th, tile_w=tw)
+            gout = torch.tensor(
+                rng.normal(size=tuple(out.shape)), dtype=torch.float32, device=device
+            )
+            args = (feats, origins, out, gout)
+            got = rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
+            again = rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
+            plain = ref.rasterize_bwd_ref(*args, tile_h=th, tile_w=tw)
+            emul = ref.rasterize_bwd_emulate(*args, tile_h=th, tile_w=tw)
+            torch.cuda.synchronize()
+            err = (got - plain).abs().max().item()
+            g_ref = bwd_gate(got, plain, BWD_TOL)
+            g_emul = bwd_gate(got, emul, BWD_EMUL_TOL)
+            dead = feats[..., 8] == 0
+            log(
+                f"bwd K={K:3d} tile {th}x{tw}: max abs err {err:.3e} vs plain "
+                f"(|g| max {plain.abs().max().item():.3e}), "
+                f"{(got - emul).abs().max().item():.3e} vs emulation; gate "
+                f"{g_ref:.3f} / {g_emul:.3f}"
+            )
+            if not (g_ref <= 1.0 and g_emul <= 1.0):
+                raise AssertionError(f"bwd K={K} tile {th}x{tw}: gate {g_ref} {g_emul}")
+            if got[..., 9:].abs().max().item() != 0.0:
+                raise AssertionError("padding columns carry gradient")
+            if dead.any() and got[..., :8][dead].abs().max().item() != 0.0:
+                raise AssertionError("dead slots carry geometry/colour gradient")
+            if not torch.equal(got, again):
+                raise AssertionError("the backward kernel is not deterministic")
+            worst = max(worst, err)
+    # the dispatcher never takes the plain version on a CUDA tensor, and its
+    # backward is the kernel: exactly one rasterize_bwd launch per backward
     feats, origins = tile_inputs(rng, 3, 8, 16, 16, device)
     try:
         ops.rasterize_tiles(feats, origins, tile_h=16, tile_w=16, impl="ref")
@@ -128,14 +222,23 @@ def kernel_phase(device):
         pass
     else:
         raise AssertionError("impl='ref' ran on CUDA tensors")
-    feats.requires_grad_(True)
-    out = ops.rasterize_tiles(feats, origins, tile_h=16, tile_w=16)
-    try:
-        out.sum().backward()
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("the CUDA rasterizer's backward did not raise")
+    for dtype in (torch.float32, torch.bfloat16):
+        f = feats.detach().to(dtype).requires_grad_(True)
+        o = origins.clone().requires_grad_(True)
+        gout = torch.randn((3, 4, 16, 16), device=device)
+        before = rasterize.BWD_LAUNCHES
+        out = ops.rasterize_tiles(f, o, tile_h=16, tile_w=16)
+        out.backward(gout)
+        if rasterize.BWD_LAUNCHES != before + 1:
+            raise AssertionError("the backward did not launch rasterize_bwd once")
+        if f.grad.dtype != dtype or o.grad.abs().max().item() != 0.0:
+            raise AssertionError(f"cotangent dtype {f.grad.dtype} / origins grad")
+        f32 = f.detach().to(torch.float32)
+        want = ref.rasterize_bwd_ref(
+            f32, origins, out.detach(), gout, tile_h=16, tile_w=16
+        )
+        if dtype == torch.float32 and bwd_gate(f.grad, want, BWD_TOL) > 1.0:
+            raise AssertionError("dispatcher backward disagrees with the plain version")
     return worst
 
 
@@ -413,6 +516,466 @@ def small_scene_check(device):
         raise AssertionError(f"small scene differs: {err} {tel_d} {tel_c}")
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+class RecordingSchedule(TierSchedule):
+    """A TierSchedule that records every probe and overflow counter it is
+    fed (the telemetry ``fit_partition`` drives it with)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.probes = []  # caps after each probe
+        self.overflows = []  # (counter, caps grew) per step
+
+    def probe(self, occupancy):
+        out = super().probe(occupancy)
+        self.probes.append(self.tier_caps)
+        return out
+
+    def note_overflow(self, overflow, n_tiles):
+        ov = int(as_numpy(overflow).sum())
+        grew = super().note_overflow(overflow, n_tiles)
+        self.overflows.append((ov, grew))
+        return grew
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def recording_fit(records, device):
+    """``fit_partition`` as ``run_pipeline`` calls it, with a
+    RecordingSchedule, the densify events, both kernels' launches, the
+    losses and the wall time of each partition recorded in ``records``;
+    the first partition also keeps its step-0 inputs for the timing."""
+    fit = train_mod.fit_partition
+    densify = train_mod.densify_and_prune
+
+    def run(g0, cams, gts, masks, cfg, **kw):
+        sched = RecordingSchedule(cfg.resolved_k_tiers(), slack=cfg.tier_slack)
+        events = []
+
+        def counted(g, opt, *a, **k):
+            out = densify(g, opt, *a, **k)
+            events.append((int(g.active.sum()), int(out[0].active.sum())))
+            return out
+
+        f0, b0 = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        sync(device)
+        t0 = time.perf_counter()
+        with patched(train_mod, "densify_and_prune", counted):
+            g1, opt, losses = fit(g0, cams, gts, masks, cfg, schedule=sched, **kw)
+        sync(device)
+        rec = {
+            "seconds": time.perf_counter() - t0,
+            "losses": losses,
+            "fwd": rasterize.LAUNCHES - f0,
+            "bwd": rasterize.BWD_LAUNCHES - b0,
+            "probes": sched.probes,
+            "overflows": sched.overflows,
+            "densify": events,
+            "k_tiers": sched.k_tiers,
+            "active": (int(g0.active.sum()), int(g1.active.sum())),
+            "capacity": g0.capacity,
+        }
+        if not records:
+            rec.update(
+                g0=g0,
+                cams=cams,
+                grid=kw["grid"],
+                cfg=cfg,
+                extent=kw["extent"],
+                gt0=gts[:1].clone(),
+                mask0=None if masks is None else masks[:1].clone(),
+            )
+        records.append(rec)
+        return g1, opt, losses
+
+    return run
+
+
+def timed(times, label, fn, device):
+    """``fn`` with the wall time of each call appended to ``times``."""
+
+    def run(*a, **kw):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync(device)
+        times.append((label, time.perf_counter() - t0))
+        return out
+
+    return run
+
+
+def run_recorded_pipeline(cfg, device):
+    """``run_pipeline(cfg)`` with per-partition records and stage times ->
+    (result, records, stage times, launches of the whole run: both counts
+    are set to 0 just before it and read just after)."""
+    records, times = [], []
+    with contextlib.ExitStack() as stack:
+        fit = recording_fit(records, device)
+        stack.enter_context(patched(pipeline_mod, "fit_partition", fit))
+        for name in ("build_scene", "render_views", "partition_points"):
+            fn = timed(times, name, getattr(pipeline_mod, name), device)
+            stack.enter_context(patched(pipeline_mod, name, fn))
+        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = pipeline_mod.run_pipeline(cfg, device=device)
+        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        times.append(("run_pipeline_total", time.perf_counter() - t0))
+    return result, records, times, launches
+
+
+def train_phase(
+    device,
+    *,
+    dataset="kingsnake",
+    tier="full",
+    n_parts=2,
+    resolution=1024,
+    steps=120,
+    K=64,
+    densify_every=10,
+    n_views=16,
+    tile=16,
+):
+    """``run_pipeline`` at the given size (the defaults: the full-size
+    kingsnake scene) -> (result, records, launches of the whole run),
+    checked: losses finite and falling in each partition, densify events
+    that change the live count, the tier telemetry fed every step, and
+    (on the card) bwd launches == fwd launches > 0 in training."""
+    cfg = PipelineCfg(
+        dataset=dataset,
+        tier=tier,
+        n_parts=n_parts,
+        resolution=resolution,
+        steps=steps,
+        K=K,
+        densify_every=densify_every,
+        n_views=n_views,
+        train=GSTrainCfg(K=K, tile_h=tile, tile_w=tile),
+    )
+    log(
+        f"train: run_pipeline({dataset}/{tier}, n_parts={n_parts}, "
+        f"{resolution}^2, {tile}x{tile} tiles, steps={steps}, K={K}, "
+        f"densify_every={densify_every}, n_views={n_views}) on {device}; "
+        f"cuts: {n_views} views (paper 448), {steps} steps"
+    )
+    result, records, times, launches = run_recorded_pipeline(cfg, device)
+    # fit_partition densifies from step 100 on (its default densify_from)
+    n_events = sum(
+        1 for i in range(100, steps) if densify_every and (i + 1) % densify_every == 0
+    )
+    for p, rec in enumerate(records):
+        losses = np.asarray(rec["losses"])
+        first, last = losses[:10].mean(), losses[-10:].mean()
+        grown = sum(g for _, g in rec["overflows"])
+        dropped = [o for o, _ in rec["overflows"] if o]
+        log(
+            f"partition {p}: capacity {rec['capacity']}, active "
+            f"{rec['active'][0]} -> {rec['active'][1]}, densify {rec['densify']}, "
+            f"ladder {rec['k_tiers']}, probed caps {rec['probes']}, overflowing "
+            f"steps {len(dropped)} ({sum(dropped)} tiles, caps grew {grown}x), "
+            f"launches fwd {rec['fwd']} bwd {rec['bwd']}, {rec['seconds']:.3f} s"
+        )
+        log(f"partition {p} losses {[round(x, 5) for x in rec['losses']]}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"partition {p}: non-finite loss")
+        if not last < first:
+            raise AssertionError(f"partition {p}: loss did not fall {first} -> {last}")
+        changed = any(a != b for a, b in rec["densify"])
+        if len(rec["densify"]) != n_events or (n_events and not changed):
+            raise AssertionError(f"partition {p}: densify events {rec['densify']}")
+        if len(rec["probes"]) != 1 + n_events or len(rec["overflows"]) != steps:
+            raise AssertionError(f"partition {p}: tier telemetry not fed every step")
+        on_card = torch.device(device).type == "cuda"
+        if on_card and not rec["bwd"] == rec["fwd"] > 0:
+            raise AssertionError(f"partition {p}: launches {rec['fwd']} / {rec['bwd']}")
+    if not (math.isfinite(result.psnr) and math.isfinite(result.ssim)):
+        raise AssertionError(f"merged metrics {result.psnr} {result.ssim}")
+    log(
+        f"merged: {result.n_gaussians} gaussians, PSNR {result.psnr:.4f} dB, SSIM "
+        f"{result.ssim:.5f}, grad_sim {result.grad_sim:.5f}, boundary PSNR "
+        f"{result.boundary_psnr:.4f} SSIM {result.boundary_ssim:.5f} "
+        f"(frac {result.boundary_frac:.4f}); run launches {launches}"
+    )
+    log("train stage times (s) " + json.dumps([(k, round(v, 4)) for k, v in times]))
+    return result, records, launches
+
+
+#: card vs CPU on the small scene, 12 steps: the losses of each partition
+#: (relative) and the merged PSNR (dB) / SSIM.  Sources of difference: the
+#: gather transpose's atomics, the kernels' reduction order, cuDNN's
+#: convolution and the projection's matmul rounding, fed through Adam.
+SMALL_LOSS_RTOL = 1e-3
+SMALL_PSNR_ATOL = 0.01
+SMALL_SSIM_ATOL = 1e-4
+
+
+def small_pipeline_check(device):
+    """``run_pipeline`` on the CPU-tier sphere_shell scene on the card and
+    on the CPU from the same input: losses and final PSNR/SSIM agree."""
+    cfg = PipelineCfg(
+        dataset="sphere_shell",
+        n_parts=2,
+        resolution=32,
+        steps=12,
+        K=16,
+        n_views=4,
+        train=GSTrainCfg(K=16, tile_h=8, tile_w=16),
+    )
+    (res_d, rec_d, _, _), (res_c, rec_c, _, _) = (
+        run_recorded_pipeline(cfg, dev) for dev in (device, "cpu")
+    )
+    loss_err = max(
+        float(np.max(np.abs(np.subtract(a["losses"], b["losses"])) / b["losses"]))
+        for a, b in zip(rec_d, rec_c)
+    )
+    psnr_err = abs(res_d.psnr - res_c.psnr)
+    ssim_err = abs(res_d.ssim - res_c.ssim)
+    log(
+        f"small pipeline, card vs CPU: losses max rel diff {loss_err:.3e}, PSNR "
+        f"{res_d.psnr:.5f} vs {res_c.psnr:.5f} dB ({psnr_err:.3e}), SSIM "
+        f"{res_d.ssim:.6f} vs {res_c.ssim:.6f} ({ssim_err:.3e})"
+    )
+    if not (
+        loss_err <= SMALL_LOSS_RTOL
+        and psnr_err <= SMALL_PSNR_ATOL
+        and ssim_err <= SMALL_SSIM_ATOL
+    ):
+        raise AssertionError("the small pipeline differs between card and CPU")
+
+
+def step_inputs(rec):
+    """Partition 0's step-0 inputs -> (its initial model, view 0, the grid,
+    the ladder, the first probe's caps, the assignment knobs the trainer
+    resolved)."""
+    g, cams, grid = rec["g0"], rec["cams"], rec["grid"]
+    cam = select(cams, torch.arange(1, device=g.means.device))
+    impl, budget = resolve_assignment(g, cams, grid)
+    assign = {"assign_impl": impl, "assign_budget": budget}
+    return g, cam, grid, rec["k_tiers"], rec["probes"][0], assign
+
+
+def step_tables(splats, grid, k_tiers, caps, assign):
+    """One step's tier tables from its splats -> (per-tier feats, origins,
+    flat ids, plan)."""
+    idx, score, _ = _assign_views(splats, grid, K=k_tiers[-1], block=4096, **assign)
+    return tier_tables(
+        splat_features(splats), idx, score, grid, k_tiers=k_tiers, tier_caps=caps
+    )
+
+
+def train_timing_phase(rec, reps=25, plain_reps=5):
+    """Kernel vs plain version on one train step's own tier tables: the
+    forward at each tier's K, the backward on the top tier -> (the backward
+    kernel's stats, the forward's per-tier stats)."""
+    g, cam, grid, k_tiers, caps, assign = step_inputs(rec)
+    th, tw = grid.tile_h, grid.tile_w
+    with torch.no_grad():
+        splats = project(g, cam)
+        feats, origins, _, plan = step_tables(splats, grid, k_tiers, caps, assign)
+    log(
+        f"step tables: ladder {k_tiers}, caps {caps}, tiles placed "
+        f"{plan.counts[0].tolist()}, assignment {assign}"
+    )
+    fwd_tiers = {}
+    for k, tf, og in zip(k_tiers, feats, origins):
+        if tf.shape[0] == 0:
+            continue
+
+        def kernel_fwd():
+            return rasterize.rasterize_fwd(tf, og, tile_h=th, tile_w=tw)
+
+        def plain_fwd():
+            return ref.rasterize_tiles_ref(tf, og, tile_h=th, tile_w=tw)
+
+        out = kernel_fwd()
+        err = (out - plain_fwd()).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"tier K={k}: forward err {err}")
+        t_ops = tf.shape[0] * k * th * tw * OPS_PER_SPLAT_PIXEL / PEAK_F32_FLOPS
+        t_bytes = 4 * (tf.numel() + og.numel() + out.numel()) / PEAK_BYTES_PER_S
+        fwd_tiers[k] = {
+            "tiles": tf.shape[0],
+            "ms": cuda_time_ms(kernel_fwd, reps),
+            "plain_ms": cuda_time_ms(plain_fwd, plain_reps),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "max_abs_err": err,
+        }
+        log(f"train fwd tier K={k}: {json.dumps(fwd_tiers[k])}")
+    k, tf, og = [t for t in zip(k_tiers, feats, origins) if t[1].shape[0]][-1]
+    out = rasterize.rasterize_fwd(tf, og, tile_h=th, tile_w=tw)
+    gen = torch.Generator(device=tf.device).manual_seed(0)
+    gout = torch.randn(tuple(out.shape), generator=gen, device=tf.device)
+    args = (tf, og, out, gout)
+
+    def kernel():
+        return rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
+
+    def plain_version():
+        return ref.rasterize_bwd_ref(*args, tile_h=th, tile_w=tw)
+
+    got, want = kernel(), plain_version()
+    err = (got - want).abs().max().item()
+    gate = bwd_gate(got, want, BWD_TOL)
+    log(
+        f"train bwd top tier K={k} ({tf.shape[0]} tiles): max abs err {err:.3e} "
+        f"(|g| max {want.abs().max().item():.3e}), gate {gate:.3f}"
+    )
+    if not gate <= 1.0:
+        raise AssertionError(f"train-shape backward disagrees: gate {gate}")
+    # in turns within one process: plain, kernel, kernel, plain
+    ms_p1 = cuda_time_ms(plain_version, plain_reps)
+    ms_k1 = cuda_time_ms(kernel, reps)
+    ms_k2 = cuda_time_ms(kernel, reps)
+    ms_p2 = cuda_time_ms(plain_version, plain_reps)
+    n = tf.shape[0] * k * th * tw
+    t_ops = n * BWD_OPS_PER_SPLAT_PIXEL / PEAK_F32_FLOPS * 1e3
+    n_bytes = 4 * (2 * tf.numel() + og.numel() + out.numel() + gout.numel())
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    log(
+        f"timing bwd T={tf.shape[0]} K={k} tile {th}x{tw}: kernel {ms_k1:.4f} / "
+        f"{ms_k2:.4f} ms, plain {ms_p1:.3f} / {ms_p2:.3f} ms; bound "
+        f"{max(t_ops, t_bytes):.4f} ms ({n * BWD_OPS_PER_SPLAT_PIXEL / 1e9:.2f} "
+        f"GFLOP -> {t_ops:.4f} ms, {n_bytes / 1e6:.1f} MB -> {t_bytes:.4f} ms)"
+    )
+    stats = {
+        "max_abs_err": err,
+        "ms": statistics.median([ms_k1, ms_k2]),
+        "plain_ms": statistics.median([ms_p1, ms_p2]),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    return stats, fwd_tiers
+
+
+def train_breakdown_phase(rec):
+    """Host-clock time of each stage of one train step on partition 0's
+    step-0 inputs (each stage between two device synchronisations, second
+    of two runs), and of the whole step -> {stage: ms}.  The bwd launches
+    run inside 'backward'; they are also timed on their own."""
+    g, cam, grid, k_tiers, caps, assign = step_inputs(rec)
+    cfg, gt0, mask0 = rec["cfg"], rec["gt0"], rec["mask0"]
+    th, tw = grid.tile_h, grid.tile_w
+    lrs = group_lrs(cfg, rec["extent"])
+    opt = init_opt(g)
+    step = train_mod.make_train_step(cfg, grid, rec["extent"], tier_caps=caps, **assign)
+    stages = {}
+
+    def stage(name, fn):
+        sync(cam.view.device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(cam.view.device)
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def loss_fn():
+        rgb = _composite(untile_image(tiles, grid), cfg.bg).rgb
+        mask = None if mask0 is None else mask0[0]
+        return gs_loss(rgb, gt0[0], mask, lambda_dssim=cfg.lambda_dssim)
+
+    def bwd_launches(planes):
+        for f, o, out in planes:
+            gout = torch.ones_like(out)
+            rasterize.rasterize_bwd(f, o, out, gout, tile_h=th, tile_w=tw)
+
+    for _ in range(2):
+        tr = {k: p.detach().requires_grad_(True) for k, p in g.trainable().items()}
+        gg = g.with_trainable(tr)
+        splats = stage("project", lambda: project(gg, cam))
+        idx, score, _ = stage(
+            "assign",
+            lambda: _assign_views(splats, grid, K=k_tiers[-1], block=4096, **assign),
+        )
+        stage(
+            "occupancy_binning",
+            lambda: bin_tiles_by_occupancy(tile_occupancy(score), k_tiers, caps),
+        )
+        feat = splat_features(splats)
+        tiers = {"k_tiers": k_tiers, "tier_caps": caps}
+        feats, origins, ids, _ = stage(
+            "gather_with_binning", lambda: tier_tables(feat, idx, score, grid, **tiers)
+        )
+        tiles = stage(
+            "rasterize_fwd_launches",
+            lambda: rasterize_tiles_tiered(
+                feats, origins, ids, grid.n_tiles, tile_h=th, tile_w=tw
+            ),
+        )
+        loss = stage("untile_loss", loss_fn)
+        grads = stage("backward", lambda: torch.autograd.grad(loss, list(tr.values())))
+        grads = dict(zip(tr, grads))
+        stage("adam", lambda: adam_update(cfg, lrs, g.trainable(), grads, opt))
+        detached = [(f.detach(), o) for f, o in zip(feats, origins) if f.shape[0]]
+        planes = [
+            (f, o, rasterize.rasterize_fwd(f, o, tile_h=th, tile_w=tw))
+            for f, o in detached
+        ]
+        stage("rasterize_bwd_launches_alone", lambda: bwd_launches(planes))
+        stage("whole_step", lambda: step(g, opt, cam, gt0, mask0))
+    log(
+        "breakdown of one train step (ms) "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()})
+    )
+    return stages
+
+
+def train_profile_phase(rec, steps=3, top=12):
+    """Device time by kernel name over ``steps`` train steps on partition
+    0's step-0 inputs (``torch.profiler``, device activity only, after one
+    warm-up step), and the share of the window's wall time in which the
+    device ran anything -> (rows, busy share, window ms per step)."""
+    g, cam, grid, _, caps, assign = step_inputs(rec)
+    cfg, gt0, mask0 = rec["cfg"], rec["gt0"], rec["mask0"]
+    dev = cam.view.device
+    step = train_mod.make_train_step(cfg, grid, rec["extent"], tier_caps=caps, **assign)
+    opt = init_opt(g)
+    step(g, opt, cam, gt0, mask0)
+    sync(dev)
+    act = torch.profiler.ProfilerActivity
+    on_card = dev.type == "cuda"
+    with torch.profiler.profile(activities=[act.CUDA if on_card else act.CPU]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(g, opt, cam, gt0, mask0)
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kind = torch.autograd.DeviceType.CUDA if on_card else torch.autograd.DeviceType.CPU
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == kind
+    )
+    by_name, busy, reach = {}, 0.0, -math.inf
+    for start, end, name in spans:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + end - start)
+        busy += max(0.0, end - max(start, reach))  # union of the intervals
+        reach = max(reach, end)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    share = busy / wall_us
+    log(
+        f"profile of {steps} train steps: {wall_us / steps / 1e3:.3f} ms per step "
+        f"(traced), device busy {100 * share:.1f}% of the window, "
+        f"{len(spans)} device events, {len(rows)} names"
+    )
+    for name, (n, t) in rows[:top]:
+        log(f"  {t / steps / 1e3:8.3f} ms/step  x{n // steps:<4d} {name[:90]}")
+    return rows, share, wall_us / steps / 1e3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -434,18 +997,19 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"device {kind} x{torch.cuda.device_count()}, torch {torch.__version__}")
 
-    # 2. build
+    # 2. build: both kernels, in parallel
     t0 = time.perf_counter()
-    lib = rasterize.build(verbose=True)
-    log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
+    libs = rasterize.build(verbose=True)
+    log(f"built {[p.name for p in libs.values()]} in {time.perf_counter() - t0:.2f} s")
 
-    # 3. kernel against the plain versions
+    # 3. kernels against the plain versions
     sweep_err = kernel_phase(device)
+    bwd_sweep_err = bwd_kernel_phase(device)
 
     # 4. serve at paper scale; the launch count covers the two passes only
     torch.cuda.reset_peak_memory_stats()
     server, rig, passes, times, info = serve_phase(device)
-    launches = info["launches"]
+    serve_launches = info["launches"]
     n_views = rig.view.shape[0]
     tel, cov = check_passes(server, passes, n_views)
     log(f"model {info}")
@@ -453,31 +1017,68 @@ def main():
     log(f"telemetry {tel}")
     log(f"coverage per request {[round(c, 3) for c in cov]}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"peak device memory {peak_gib:.2f} GiB")
-    if launches != tel["batches"] or launches == 0:
-        raise AssertionError(f"{launches} launches for {tel['batches']} dispatches")
+    log(f"serve: peak device memory {peak_gib:.2f} GiB")
+    if serve_launches != tel["batches"] or serve_launches == 0:
+        raise AssertionError(f"{serve_launches} launches, {tel['batches']} dispatches")
     small_scene_check(device)
-
-    # 5. kernel time on the first dispatch's own features (the near views)
+    # the forward kernel's time on the first dispatch's own features
     near = [v for v in range(n_views) if passes[0][v].rung == 0]
     near = near[: server.cfg.max_batch]
     stats = timing_phase(server, rig, passes[0], near)
     assign = (info["assign_impl"], info["assign_budget"])
     breakdown_phase(server, rig, passes[0], near, assign)
-    record = {
-        "name": "rasterize_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rasterize_fwd.cu",
-        "replaces": "src/repro/kernels/rasterize.py:96",
-        "launches": launches,
-        "max_abs_err": max(sweep_err, stats["max_abs_err"]),
-        "ms": stats["ms"],
-        "plain_ms": stats["plain_ms"],
-        "bound_ms": stats["bound_ms"],
-        "bound_by": stats["bound_by"],
-        "library_ms": None,
-    }
-    print(json.dumps({"kernels": [record]}), flush=True)
+    del server, rig, passes
+    torch.cuda.empty_cache()
+
+    # 5. train at paper scale; the counts cover the whole run_pipeline
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, records, train_launches = train_phase(device)
+    log(
+        f"train: phase {time.perf_counter() - t0:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    small_pipeline_check(device)
+
+    # 6. kernel times on one train step's own tier tables, and its stages
+    bwd_stats, fwd_tiers = train_timing_phase(records[0])
+    train_breakdown_phase(records[0])
+    train_profile_phase(records[0])
+    fwd_errs = [sweep_err, stats["max_abs_err"]]
+    fwd_errs += [t["max_abs_err"] for t in fwd_tiers.values()]
+    log(
+        f"launches on the main paths: serve fwd {serve_launches}; train fwd "
+        f"{train_launches['fwd']} bwd {train_launches['bwd']}"
+    )
+    kernels = [
+        {
+            "name": "rasterize_fwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rasterize_fwd.cu",
+            "replaces": "src/repro/kernels/rasterize.py:96",
+            "launches": serve_launches + train_launches["fwd"],
+            "max_abs_err": max(fwd_errs),
+            "ms": stats["ms"],
+            "plain_ms": stats["plain_ms"],
+            "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "rasterize_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
+            "replaces": "src/repro/kernels/rasterize.py:169",
+            "launches": train_launches["bwd"],
+            "max_abs_err": max(bwd_sweep_err, bwd_stats["max_abs_err"]),
+            "ms": bwd_stats["ms"],
+            "plain_ms": bwd_stats["plain_ms"],
+            "bound_ms": bwd_stats["bound_ms"],
+            "bound_by": bwd_stats["bound_by"],
+            "library_ms": None,
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     device_info = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}), flush=True)
     return 0

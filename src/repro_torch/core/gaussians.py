@@ -40,6 +40,27 @@ class Gaussians(NamedTuple):
     def capacity(self) -> int:
         return self.means.shape[0]
 
+    def trainable(self):
+        """The five trained fields, by name (the reference's layout of the
+        parameter and optimizer-moment trees)."""
+        return {
+            "means": self.means,
+            "log_scales": self.log_scales,
+            "quats": self.quats,
+            "opacity_logit": self.opacity_logit,
+            "colors": self.colors,
+        }
+
+    def with_trainable(self, t):
+        """A copy with the trained fields replaced from the dict ``t``."""
+        return self._replace(
+            means=t["means"],
+            log_scales=t["log_scales"],
+            quats=t["quats"],
+            opacity_logit=t["opacity_logit"],
+            colors=t["colors"],
+        )
+
 
 #: numpy dtype of each field, as the reference stores it
 _FIELD_DTYPES = {

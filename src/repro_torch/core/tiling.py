@@ -1,4 +1,4 @@
-"""Tile assignment: fixed-K per-tile gaussian lists (serving subset).
+"""Tile assignment: fixed-K per-tile gaussian lists, and occupancy tiers.
 
 Port of ``repro.core.tiling``.  Each tile keeps its top-K *front-most*
 gaussians (conservative circle/rect overlap test), ordered (score desc,
@@ -21,8 +21,10 @@ applies (``exact_budget``): the render paths the reference traces
 (``render_batch``, ``assign_tables``) pass False; direct calls keep the
 exact rule.
 
-Not ported yet: the coarse superblock pre-cull (``coarse=``), occupancy
-tiers (``tile_occupancy`` ... ``TierSchedule.probe``) and ``tile_image``.
+Occupancy tiers (``tile_occupancy``, ``tile_tiers``,
+``bin_tiles_by_occupancy``, the cap sizers and ``TierSchedule``) are the
+reference's, with host-side numpy where the reference reads concrete
+values.  Not ported yet: the coarse superblock pre-cull (``coarse=``).
 
 Shape glossary: N splats, T tiles (grid.n_tiles), K per-tile list depth,
 V views.
@@ -66,8 +68,9 @@ class TileGrid(NamedTuple):
         return self.nx * self.ny
 
 
-def tile_bounds(grid: TileGrid, device="cpu"):
-    """Tile rects: (T, 2) lo, (T, 2) hi in pixel coords (x, y), float32."""
+def tile_bounds(grid: TileGrid, device):
+    """Tile rects on ``device``: (T, 2) lo, (T, 2) hi in pixel coords
+    (x, y), float32."""
     ty, tx = torch.meshgrid(torch.arange(grid.ny, device=device),
                             torch.arange(grid.nx, device=device),
                             indexing="ij")
@@ -77,8 +80,9 @@ def tile_bounds(grid: TileGrid, device="cpu"):
     return lo.to(torch.float32), hi.to(torch.float32)
 
 
-def tile_origins(grid: TileGrid, device="cpu"):
-    """(T, 2) float32 pixel coords of each tile's top-left corner (x, y)."""
+def tile_origins(grid: TileGrid, device):
+    """(T, 2) float32 pixel coords of each tile's top-left corner (x, y),
+    on ``device``."""
     lo, _ = tile_bounds(grid, device)
     return lo
 
@@ -374,30 +378,238 @@ def assign_tiles_sorted(splats: Splats2D, grid: TileGrid, *, K: int = 64,
 
 
 # ---------------------------------------------------------------------------
-# Serving K ladder
+# Variable-K occupancy binning (tiered rasterization)
 # ---------------------------------------------------------------------------
 
 
-class TierSchedule:
-    """The K ladder of the reference's telemetry-driven tier schedule — the
-    part the server reads (``k_tiers``, ``kmax``).  Probing, capacities and
-    their knobs come with training."""
+class TierPlan(NamedTuple):
+    """Static-shape dispatch schedule for tiered rasterization.
 
-    def __init__(self, k_tiers: Sequence[int] = (8, 32, 128)):
+    tile_ids  per tier i: (..., cap_i) int32 flat tile ids compacted to the
+              front; slots past ``counts[..., i]`` hold M (the one-past-
+              the-end sentinel, M = the flat tile count).
+    counts    (..., n_tiers) int32: tiles actually placed per tier.
+    overflow  (...) int32: tiles that fit no tier because every cap from
+              their desired tier upward was full -- dropped from
+              rasterization (they render as background).
+    """
+    tile_ids: Tuple[torch.Tensor, ...]
+    counts: torch.Tensor
+    overflow: torch.Tensor
+
+
+def tile_occupancy(score):
+    """(..., T, K) assignment scores -> (..., T) int32 live-entry counts."""
+    return (score > NEG / 2).sum(dim=-1).to(torch.int32)
+
+
+def tile_tiers(occupancy, k_tiers: Sequence[int]):
+    """Per-tile tier index: the smallest tier whose K covers the occupancy.
+
+    occupancy (..., T) int32 -> (..., T) int32 in [-1, n_tiers).  Empty
+    tiles get -1; tiles deeper than the top tier land in the top tier."""
+    kt = torch.tensor(tuple(int(k) for k in k_tiers), dtype=torch.int32,
+                      device=occupancy.device)
+    covered = occupancy[..., None] <= kt               # (..., T, n_tiers)
+    tier = torch.argmax(covered.to(torch.int8), dim=-1).to(torch.int32)
+    tier = torch.where(covered.any(dim=-1), tier, len(kt) - 1)
+    return torch.where(occupancy > 0, tier, -1).to(torch.int32)
+
+
+def bin_tiles_by_occupancy(occupancy, k_tiers: Sequence[int],
+                           tier_caps: Sequence[int]) -> TierPlan:
+    """Bin flat tiles into K-tiers with static per-tier capacities.
+
+    occupancy (..., M) int32 (leading axes bin independently, as the
+    reference's ``vmap`` of it does).  Tiles fill their desired tier in
+    flat-tile-id order; a tile whose tier is full promotes to the next
+    larger tier, and tiles that fall off the top count in ``overflow``.
+    Empty tiles are placed in no tier."""
+    k_tiers = tuple(int(k) for k in k_tiers)
+    tier_caps = tuple(int(c) for c in tier_caps)
+    if len(tier_caps) != len(k_tiers):
+        raise ValueError(f"{len(k_tiers)} tiers but {len(tier_caps)} caps")
+    if any(b <= a for a, b in zip(k_tiers, k_tiers[1:])):
+        raise ValueError(f"k_tiers must be strictly increasing: {k_tiers}")
+    M = occupancy.shape[-1]
+    lead = tuple(occupancy.shape[:-1])
+    dev = occupancy.device
+    tier = tile_tiers(occupancy, k_tiers)
+    ids = torch.arange(M, dtype=torch.int32, device=dev).expand(lead + (M,))
+    tile_ids, counts = [], []
+    carry = torch.zeros(lead + (M,), dtype=torch.bool, device=dev)
+    for i, cap in enumerate(tier_caps):
+        want = (tier == i) | carry
+        rank = torch.cumsum(want.to(torch.int32), dim=-1) - 1
+        take = want & (rank < cap)
+        pos = torch.where(take, torch.clamp(rank, max=cap), cap)
+        buf = torch.full(lead + (cap + 1,), M, dtype=torch.int32, device=dev)
+        buf.scatter_(-1, pos.long(), torch.where(take, ids, M))
+        tile_ids.append(buf[..., :cap])
+        counts.append(torch.clamp(want.sum(dim=-1), max=cap).to(torch.int32))
+        carry = want & ~take
+    return TierPlan(tile_ids=tuple(tile_ids),
+                    counts=torch.stack(counts, dim=-1),
+                    overflow=carry.sum(dim=-1).to(torch.int32))
+
+
+def _tier_counts(occupancy, k_tiers: Sequence[int]):
+    """Concrete (..., T) occupancy -> (per-tier worst-slice counts, max
+    occ): counts[i] = max over leading slices of the tiles whose DESIRED
+    tier is i -- what the caps must cover."""
+    occ = as_numpy(occupancy)
+    if occ.size == 0:
+        return [0] * len(tuple(k_tiers)), 0
+    occ = occ.reshape(-1, occ.shape[-1])
+    tiers = tile_tiers(torch.from_numpy(np.ascontiguousarray(occ)),
+                       k_tiers).numpy()
+    counts = [int((tiers == i).sum(axis=-1).max())
+              for i in range(len(tuple(k_tiers)))]
+    return counts, int(occ.max())
+
+
+def caps_from_tier_counts(counts: Sequence[int], *, slack: float = 1.0,
+                          round_to: int = 8, limit: int) -> Tuple[int, ...]:
+    """Per-tier tile counts -> static caps: scale by ``slack``, round up to
+    ``round_to``, clamp at ``limit`` (the flat tile count of the binning
+    domain).  Zero counts keep cap 0 (no launch)."""
+    caps = []
+    for c in counts:
+        c = int(c)
+        if c:
+            c = int(np.ceil(c * slack))
+            c = min(-(-c // round_to) * round_to, int(limit))
+        caps.append(c)
+    return tuple(caps)
+
+
+def auto_tier_caps(occupancy, k_tiers: Sequence[int], *, slack: float = 1.0,
+                   round_to: int = 8) -> Tuple[int, ...]:
+    """Host-side cap sizing from concrete (..., T) occupancy counts: caps
+    covering the worst slice, scaled by ``slack``, rounded up to
+    ``round_to``."""
+    occ = as_numpy(occupancy)
+    counts, _ = _tier_counts(occ, k_tiers)
+    return caps_from_tier_counts(counts, slack=slack, round_to=round_to,
+                                 limit=occ.shape[-1] if occ.size else 0)
+
+
+class TierSchedule:
+    """Telemetry-driven (k_tiers, tier_caps) picker for tiered training,
+    and the serving K ladder.
+
+      probe(occupancy)   concrete (..., T) occupancy measured at ``kmax``
+          -> re-sized caps (cap 0 for unoccupied tiers); ``trim=True``
+          also trims the ladder to the occupied prefix.
+      note_overflow(ov, n_tiles)   a step's dropped-tile counter grows
+          every cap by ``growth`` (clamped at ``n_tiles``); True when the
+          caps changed.
+      state_dict / load_state / from_state   a JSON snapshot, identical to
+          the reference's, so a schedule moves between the two packages.
+    """
+
+    def __init__(self, k_tiers: Sequence[int] = (8, 32, 128), *,
+                 slack: float = 1.25, round_to: int = 8,
+                 growth: float = 2.0, trim: bool = False):
         ladder = tuple(int(k) for k in k_tiers)
         if not ladder or any(b <= a for a, b in zip(ladder, ladder[1:])):
             raise ValueError("k_tiers must be a non-empty strictly "
                              f"increasing ladder: {ladder}")
-        self.ladder = ladder
+        self.ladder = ladder             # full ladder (probe depth = max)
+        self.slack = float(slack)
+        self.round_to = int(round_to)
+        self.growth = float(growth)
+        self.trim = bool(trim)
         self.k_tiers: Tuple[int, ...] = ladder   # active tiers
+        self.tier_caps: Optional[Tuple[int, ...]] = None  # None until probe
 
     @property
     def kmax(self) -> int:
-        """Assignment depth of the ladder's top tier."""
+        """Assignment depth probes must use."""
         return self.ladder[-1]
 
+    def probe(self, occupancy):
+        """Re-pick (k_tiers, tier_caps) from concrete (..., T) occupancy
+        measured at ``self.kmax``."""
+        occ = as_numpy(occupancy)
+        counts, max_occ = _tier_counts(occ, self.ladder)
+        return self.probe_counts(counts, max_occ,
+                                 n_tiles=occ.shape[-1] if occ.size else 0)
+
+    def probe_counts(self, tier_counts, max_occ, *, n_tiles: int):
+        """Re-pick (k_tiers, tier_caps) from reduced telemetry: per-tier
+        worst-domain tile counts over the full ladder, the max occupancy,
+        and ``n_tiles`` (the cap clamp)."""
+        counts = [int(c) for c in np.asarray(as_numpy(tier_counts)).reshape(-1)]
+        if len(counts) != len(self.ladder):
+            raise ValueError(
+                f"probe_counts got {len(counts)} tier counts for the "
+                f"{len(self.ladder)}-tier ladder {self.ladder}; counts must "
+                "be measured over the schedule's FULL ladder")
+        max_occ = int(max_occ)
+        active = self.ladder
+        if self.trim:
+            for i, k in enumerate(self.ladder):
+                if max_occ <= k and k < self.ladder[-1]:
+                    active = self.ladder[: i + 1]
+                    break
+        self.k_tiers = active
+        self.tier_caps = caps_from_tier_counts(
+            counts[: len(active)], slack=self.slack, round_to=self.round_to,
+            limit=n_tiles)
+        return self.k_tiers, self.tier_caps
+
+    def note_overflow(self, overflow, n_tiles: int) -> bool:
+        """Grow every cap by ``growth`` (clamped at ``n_tiles``) when the
+        counter is positive; True when the caps changed."""
+        ov = int(np.asarray(as_numpy(overflow)).sum())
+        if ov <= 0 or self.tier_caps is None:
+            return False
+        grown = tuple(
+            min(int(n_tiles), max(self.round_to,
+                                  int(np.ceil(c * self.growth))))
+            for c in self.tier_caps)
+        if grown == self.tier_caps:
+            return False
+        self.tier_caps = grown
+        return True
+
+    def state_dict(self) -> dict:
+        """JSON-able snapshot (ladder, knobs, active tiers, caps)."""
+        return {
+            "ladder": list(self.ladder),
+            "slack": self.slack,
+            "round_to": self.round_to,
+            "growth": self.growth,
+            "trim": self.trim,
+            "k_tiers": list(self.k_tiers),
+            "tier_caps": None if self.tier_caps is None
+            else list(self.tier_caps),
+        }
+
+    def load_state(self, state: dict) -> "TierSchedule":
+        """Restore a ``state_dict`` snapshot in place and return self."""
+        ladder = tuple(int(k) for k in state["ladder"])
+        if not ladder or any(b <= a for a, b in zip(ladder, ladder[1:])):
+            raise ValueError(f"checkpointed ladder is invalid: {ladder}")
+        self.ladder = ladder
+        self.slack = float(state["slack"])
+        self.round_to = int(state["round_to"])
+        self.growth = float(state["growth"])
+        self.trim = bool(state["trim"])
+        self.k_tiers = tuple(int(k) for k in state["k_tiers"])
+        caps = state["tier_caps"]
+        self.tier_caps = None if caps is None else tuple(int(c) for c in caps)
+        return self
+
+    @classmethod
+    def from_state(cls, state: dict) -> "TierSchedule":
+        """Rebuild a schedule from a ``state_dict`` snapshot."""
+        return cls(state["ladder"]).load_state(state)
+
     def __repr__(self):
-        return f"TierSchedule(k_tiers={self.k_tiers})"
+        return (f"TierSchedule(k_tiers={self.k_tiers}, "
+                f"tier_caps={self.tier_caps}, ladder={self.ladder})")
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +659,18 @@ def untile_image(tiles, grid: TileGrid):
     img = img.permute(*range(n), n, n + 3, n + 1, n + 4, n + 2)
     img = img.reshape(lead + (grid.ny * th, grid.nx * tw, 4))
     return img[..., : grid.height, : grid.width, :]
+
+
+def tile_image(img, grid: TileGrid):
+    """(H, W, C) image -> (T, C, th, tw) tile layout (the inverse of
+    ``untile_image``; pixels past the image edge are zero-filled)."""
+    th, tw = grid.tile_h, grid.tile_w
+    Hp, Wp = grid.ny * th, grid.nx * tw
+    img = torch.nn.functional.pad(
+        img, (0, 0, 0, Wp - img.shape[1], 0, Hp - img.shape[0]))
+    t = img.reshape(grid.ny, th, grid.nx, tw, img.shape[-1])
+    return t.permute(0, 2, 4, 1, 3).reshape(grid.n_tiles, img.shape[-1],
+                                            th, tw)
 
 
 # ---------------------------------------------------------------------------

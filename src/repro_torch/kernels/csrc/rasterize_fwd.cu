@@ -20,6 +20,8 @@
 //     shared memory; every thread then reads the same row (a broadcast).
 //   * Each thread runs the reference loop in f32 registers and writes its 4
 //     channels (coalesced: neighbouring threads, neighbouring pixels).
+//   * The alpha arithmetic lives in alpha_terms.cuh, shared with the
+//     backward kernel (rasterize_bwd.cu), so both see the same live set.
 //   * Built without --use_fast_math, with expf (not __expf) and -fmad=false
 //     (no fused multiply-add contraction), so every operation rounds as the
 //     plain PyTorch version's separate element-wise ops do: the kernel holds
@@ -47,12 +49,13 @@
 
 #include <cuda_runtime.h>
 
+#include "alpha_terms.cuh"
+
 namespace {
 
+using repro_torch::kLive;
+
 constexpr int kChunk = 256;   // feature rows staged per shared-memory pass
-constexpr int kLive = 9;      // live feature columns: mx my A B C r g b op
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
 
 __global__ void __launch_bounds__(1024)
 rasterize_fwd_kernel(const float* __restrict__ feats,
@@ -79,13 +82,7 @@ rasterize_fwd_kernel(const float* __restrict__ feats,
     __syncthreads();
     for (int k = 0; k < n; ++k) {
       const float* f = rows + k * kLive;
-      const float dx = px - f[0];
-      const float dy = py - f[1];
-      const float sigma =
-          0.5f * (f[2] * dx * dx + f[4] * dy * dy) + f[3] * dx * dy;
-      const float gk = expf(-fmaxf(sigma, 0.0f));
-      float alpha = fminf(f[8] * gk, kAlphaMax);
-      alpha = alpha < kAlphaMin ? 0.0f : alpha;
+      const float alpha = repro_torch::alpha_terms(f, px, py).alpha;
       const float w = trans * alpha;
       trans = trans * (1.0f - alpha);
       r = r + w * f[5];

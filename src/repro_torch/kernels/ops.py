@@ -9,12 +9,15 @@
 
 No path falls back from the kernel to the plain version: on a CUDA tensor
 the kernel launches or the call raises.  On CUDA tensors the forward goes
-through a ``torch.autograd.Function`` whose backward raises until the
-backward kernel (``rasterize_bwd``) is ported with the training slice.
+through a ``torch.autograd.Function`` whose backward is the CUDA
+``rasterize_bwd`` kernel; on CPU tensors autograd differentiates the plain
+version.
 
   rasterize_tiles          one (T,) launch at a single K
   rasterize_tiles_batched  view-batched: (V, T) flattened to one (V*T,)
                            launch
+  rasterize_tiles_tiered   variable-K: one launch per non-empty occupancy
+                           tier, scattered back into the flat tile image
 """
 
 from __future__ import annotations
@@ -28,18 +31,26 @@ IMPLS = ("auto", "ref", "cuda")
 
 
 class _RasterizeCUDA(torch.autograd.Function):
-    """The CUDA forward; its backward kernel comes with training."""
+    """The CUDA kernel pair: ``rasterize_fwd`` forward, ``rasterize_bwd``
+    backward.  Origins get a zero gradient and the feature gradient comes
+    back in the input's dtype (``repro.kernels.ops._pallas_bwd``)."""
 
     @staticmethod
     def forward(ctx, feats, origins, tile_h: int, tile_w: int):
-        return rk.rasterize_fwd(feats, origins, tile_h=tile_h, tile_w=tile_w)
+        out = rk.rasterize_fwd(feats, origins, tile_h=tile_h, tile_w=tile_w)
+        ctx.save_for_backward(feats, origins, out)
+        ctx.tile = (tile_h, tile_w)
+        return out
 
     @staticmethod
     def backward(ctx, gout):
-        raise NotImplementedError(
-            "the CUDA rasterizer has no backward yet: rasterize_bwd is "
-            "ported with the training slice (autograd through the plain "
-            "version is not used as a stand-in)")
+        feats, origins, out = ctx.saved_tensors
+        tile_h, tile_w = ctx.tile
+        gfeats = rk.rasterize_bwd(feats, origins, out, gout.contiguous(),
+                                  tile_h=tile_h, tile_w=tile_w)
+        gorig = torch.zeros_like(origins) if ctx.needs_input_grad[1] \
+            else None
+        return gfeats.to(feats.dtype), gorig, None, None
 
 
 def resolve_impl(impl: str, feats: torch.Tensor) -> str:
@@ -89,3 +100,34 @@ def rasterize_tiles_batched(feats, origins, *, tile_h: int, tile_w: int,
         feats.reshape(V * T, K, F), origins.reshape(V * T, 2),
         tile_h=tile_h, tile_w=tile_w, impl=impl)
     return out.reshape(V, T, 4, tile_h, tile_w)
+
+
+def rasterize_tiles_tiered(tier_feats, tier_origins, tier_ids, n_tiles: int,
+                           *, tile_h: int, tile_w: int, impl: str = "auto"):
+    """Variable-K dispatch: one kernel launch per non-empty occupancy tier.
+
+    tier_feats    per tier i: (cap_i, K_i, F) compacted feature tables, each
+                  at its own K_i.
+    tier_origins  per tier i: (cap_i, 2) tile origins aligned with them.
+    tier_ids      per tier i: (cap_i,) flat tile ids
+                  (``TierPlan.tile_ids``); slots holding the sentinel
+                  ``n_tiles`` are padding and are dropped by the scatter.
+    n_tiles       M, the flat tile count of the full image.
+
+    -> (M, 4, th, tw).  Tiles in no tier come back as exact zeros.  A tier
+    of cap 0 is skipped (no launch); every other tier launches once, as
+    the reference's static schedule does.  Differentiable w.r.t. every
+    tier table: the scatter writes into one spare row that takes the
+    sentinel slots and is cut off, so its transpose routes zeros to the
+    padding slots.
+    """
+    out = torch.zeros((n_tiles + 1, 4, tile_h, tile_w), dtype=torch.float32,
+                      device=tier_feats[0].device)
+    for feats, origins, ids in zip(tier_feats, tier_origins, tier_ids):
+        if feats.shape[0] == 0:
+            continue
+        tiles = rasterize_tiles(feats, origins, tile_h=tile_h, tile_w=tile_w,
+                                impl=impl)
+        ids = torch.clamp(ids.long(), max=n_tiles)   # sentinel -> spare row
+        out = out.index_put((ids,), tiles)
+    return out[:n_tiles]

@@ -1,17 +1,19 @@
-"""CUDA tile compositor (forward) for Hopper, bound with ctypes.
+"""CUDA tile compositor (forward and backward) for Hopper, bound with ctypes.
 
-Replaces the Pallas TPU kernel ``repro.kernels.rasterize.rasterize_fwd``.
-The source is ``csrc/rasterize_fwd.cu`` (its header note gives the design
-and what bounds it); it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point at first use, under
-``build/repro_torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt.
+Replaces the Pallas TPU kernels ``repro.kernels.rasterize.rasterize_fwd``
+and ``rasterize_bwd``.  The sources are ``csrc/rasterize_fwd.cu`` and
+``csrc/rasterize_bwd.cu`` (their header notes give the design and what
+bounds each), which share the alpha arithmetic of ``csrc/alpha_terms.cuh``.
+Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C entry point at first use -- both ``nvcc`` processes started
+together -- under ``build/repro_torch_kernels/`` at the repository root,
+and loaded with ``ctypes``.  A library's file name carries a hash of every
+file under ``csrc/`` and of the flags, so an edit to any source rebuilds
+both.
 
-``rasterize_fwd`` takes CUDA tensors only; the plain PyTorch versions live
-in ``kernels/ref.py`` and the dispatcher (``kernels/ops.py``) picks between
-them by the tensors' device.  The backward kernel (``rasterize_bwd``) is
-ported with the training slice.
+``rasterize_fwd`` / ``rasterize_bwd`` take CUDA tensors only; the plain
+PyTorch versions live in ``kernels/ref.py`` and the dispatcher
+(``kernels/ops.py``) picks between them by the tensors' device.
 """
 
 from __future__ import annotations
@@ -25,18 +27,22 @@ from pathlib import Path
 
 import torch
 
-#: kernel launches made by ``rasterize_fwd`` in this process — one per
-#: call that launched the kernel, and nowhere else
+#: kernel launches made by ``rasterize_fwd`` / ``rasterize_bwd`` in this
+#: process -- one per call that launched the kernel, and nowhere else
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "rasterize_fwd.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: kernel name -> its source; each builds into its own library
+SOURCES = {"rasterize_fwd": CSRC / "rasterize_fwd.cu",
+           "rasterize_bwd": CSRC / "rasterize_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 MAX_TILE_PIXELS = 1024            # one thread per pixel, one block per tile
 
-_lib = None
+_libs = None
 
 
 def _nvcc() -> str:
@@ -53,49 +59,70 @@ def _nvcc() -> str:
                        "to build the CUDA rasterizer")
 
 
-def build(*, verbose: bool = False) -> Path:
-    """Compile ``csrc/rasterize_fwd.cu`` (once per source/flags hash) and
-    return the shared library's path.  ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report (registers, shared memory, spills)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"rasterize_fwd_{digest}.so"
-    if lib.exists() and not verbose:
-        return lib
+def _digest() -> str:
+    """Hash of every file under csrc/ (names and bytes) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.rglob("*")):
+        if f.is_file():
+            h.update(f.relative_to(CSRC).as_posix().encode() + b"\0")
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(*, verbose: bool = False) -> dict:
+    """Compile each kernel source (once per csrc/ + flags hash), all
+    ``nvcc`` processes started together, and return {name: library path}.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
+    (registers, shared memory, spills)."""
+    digest = _digest()
+    libs = {name: BUILD_DIR / f"{name}_{digest}.so" for name in SOURCES}
+    todo = [n for n, lib in libs.items() if verbose or not lib.exists()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
+    procs = {}
+    for name in todo:
+        tmp = libs[name].with_name(f"{libs[name].name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+            continue
+        if verbose:
+            print(text, end="")
+        os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.rasterize_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+    global _libs
+    if _libs is None:
+        paths = build()
+        fwd = ctypes.CDLL(str(paths["rasterize_fwd"])).rasterize_fwd_launch
+        fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        fwd.restype = ctypes.c_int
+        bwd = ctypes.CDLL(str(paths["rasterize_bwd"])).rasterize_bwd_launch
+        bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        _libs = {"fwd": fwd, "bwd": bwd}
+    return _libs
 
 
-def rasterize_fwd(feats, origins, *, tile_h: int, tile_w: int):
-    """feats (T, K, F >= 9), origins (T, 2), both on one CUDA device ->
-    (T, 4, tile_h, tile_w) float32 [r, g, b, coverage].  Inputs are
-    promoted to float32; they must be contiguous.  Launches on the current
-    stream; raises on any CUDA launch error."""
-    global LAUNCHES
+def _check_tiles(name, feats, origins, tile_h, tile_w):
+    """Shared input checks -> (feats, origins) as float32, (T, K, F)."""
     if not (feats.is_cuda and origins.is_cuda):
-        raise ValueError("rasterize_fwd runs the CUDA kernel and takes CUDA "
+        raise ValueError(f"{name} runs the CUDA kernel and takes CUDA "
                          f"tensors; got {feats.device} / {origins.device}")
     if feats.device != origins.device:
         raise ValueError(f"feats on {feats.device}, origins on "
@@ -105,29 +132,79 @@ def rasterize_fwd(feats, origins, *, tile_h: int, tile_w: int):
     if feats.dim() != 3 or feats.shape[2] < 9:
         raise ValueError(f"feats must be (T, K, F >= 9); got "
                          f"{tuple(feats.shape)}")
-    T, K, F = feats.shape
+    T = feats.shape[0]
     if tuple(origins.shape) != (T, 2):
         raise ValueError(f"origins must be ({T}, 2); got "
                          f"{tuple(origins.shape)}")
     if not (feats.is_contiguous() and origins.is_contiguous()):
-        raise ValueError("rasterize_fwd takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
     if not 1 <= tile_h * tile_w <= MAX_TILE_PIXELS:
         raise ValueError(f"tile {tile_h}x{tile_w} needs 1..{MAX_TILE_PIXELS} "
                          "pixels (one thread per pixel)")
     if T >= 2**31:
         raise ValueError(f"{T} tiles exceed the kernel's grid")
+    return feats, origins, tuple(feats.shape)
+
+
+def rasterize_fwd(feats, origins, *, tile_h: int, tile_w: int):
+    """feats (T, K, F >= 9), origins (T, 2), both on one CUDA device ->
+    (T, 4, tile_h, tile_w) float32 [r, g, b, coverage].  Inputs are
+    promoted to float32; they must be contiguous.  Launches on the current
+    stream; raises on any CUDA launch error."""
+    global LAUNCHES
+    feats, origins, (T, K, F) = _check_tiles("rasterize_fwd", feats, origins,
+                                             tile_h, tile_w)
     out = torch.empty((T, 4, tile_h, tile_w), dtype=torch.float32,
                       device=feats.device)
     if T == 0:
         return out
-    lib = _load()
+    launch = _load()["fwd"]
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = lib.rasterize_fwd_launch(feats.data_ptr(), origins.data_ptr(),
-                                       out.data_ptr(), T, K, F, tile_h,
-                                       tile_w, stream)
+        err = launch(feats.data_ptr(), origins.data_ptr(), out.data_ptr(), T,
+                     K, F, tile_h, tile_w, stream)
     if err != 0:
         raise RuntimeError(f"rasterize_fwd: CUDA launch failed with error "
                            f"{err}")
     LAUNCHES += 1
     return out
+
+
+def rasterize_bwd(feats, origins, out, gout, *, tile_h: int, tile_w: int):
+    """Gradient of ``rasterize_fwd``'s output w.r.t. its features.
+
+    feats (T, K, F >= 9), origins (T, 2), the forward's out and its
+    cotangent gout (T, 4, tile_h, tile_w), all on one CUDA device ->
+    gfeats (T, K, F) float32, columns 9.. exactly 0.  Inputs are promoted
+    to float32 and must be contiguous.  Launches on the current stream;
+    raises on any CUDA launch error.  The sums run in a fixed order (no
+    atomics), so repeated calls give identical gradients."""
+    global BWD_LAUNCHES
+    feats, origins, (T, K, F) = _check_tiles("rasterize_bwd", feats, origins,
+                                             tile_h, tile_w)
+    want = (T, 4, tile_h, tile_w)
+    planes = []
+    for name, x in (("out", out), ("gout", gout)):
+        if not x.is_cuda or x.device != feats.device:
+            raise ValueError(f"{name} on {x.device}, feats on {feats.device}")
+        x = x.to(torch.float32)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} must be {want}; got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError("rasterize_bwd takes contiguous tensors")
+        planes.append(x)
+    out, gout = planes
+    gfeats = torch.empty((T, K, F), dtype=torch.float32, device=feats.device)
+    if T == 0 or K == 0:
+        return gfeats
+    launch = _load()["bwd"]
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = launch(feats.data_ptr(), origins.data_ptr(), out.data_ptr(),
+                     gout.data_ptr(), gfeats.data_ptr(), T, K, F, tile_h,
+                     tile_w, stream)
+    if err != 0:
+        raise RuntimeError(f"rasterize_bwd: CUDA launch failed with error "
+                           f"{err}")
+    BWD_LAUNCHES += 1
+    return gfeats

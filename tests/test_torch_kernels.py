@@ -4,7 +4,7 @@ package's Pallas kernel body (interpret mode) and its jnp oracle.
 The same numpy inputs (seeded, with dead and saturated splats) go through
 ``repro.kernels`` and ``repro_torch.kernels``; the gate is the reference's
 own forward tolerance, 1e-5 (tests/test_kernel_rasterize.py).  The CUDA
-kernel itself runs only on a card: its cases skip here.
+kernel itself runs only on a card: its cases are in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -19,42 +19,9 @@ from repro.kernels import rasterize as jrk  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, rasterize, ref  # noqa: E402
 
+from test_torch_cuda import SWEEP, tile_inputs  # noqa: E402
+
 TOL = 1e-5
-
-
-def tile_inputs(seed, T, K, th, tw, dead_frac=0.2, sat_frac=0.2):
-    """(feats (T, K, 16), origins (T, 2)) float32 numpy: a strip of tiles
-    with random SPD conics, dead (alpha 0) slots and saturated splats
-    (opacity 3, so alpha clamps at 0.99)."""
-    r = np.random.default_rng(seed)
-    n = T * K
-    mean = r.uniform([-4, -4], [tw * T + 4, th + 4], size=(n, 2))
-    ang = r.uniform(0, np.pi, size=n)
-    ia = 1.0 / r.uniform(0.8, 6.0, size=n) ** 2
-    ib = 1.0 / r.uniform(0.8, 6.0, size=n) ** 2
-    ca, sa = np.cos(ang), np.sin(ang)
-    conic = np.stack([ca * ca * ia + sa * sa * ib, ca * sa * (ia - ib),
-                      sa * sa * ia + ca * ca * ib], -1)
-    rgb = r.uniform(0, 1, size=(n, 3))
-    alpha = r.uniform(0.05, 0.95, size=n)
-    alpha[r.uniform(size=n) < sat_frac] = 3.0
-    alpha[r.uniform(size=n) < dead_frac] = 0.0
-    feat = np.concatenate([mean, conic, rgb, alpha[:, None],
-                           np.zeros((n, 7))], -1)
-    origins = np.stack([np.arange(T) * tw, np.zeros(T)], -1)
-    return (feat.reshape(T, K, 16).astype(np.float32),
-            origins.astype(np.float32))
-
-
-SWEEP = [
-    # (T, K, th, tw)
-    (3, 1, 8, 16),
-    (3, 16, 8, 16),
-    (2, 64, 8, 16),
-    (2, 1, 8, 128),    # the reference's production tile shape
-    (2, 16, 8, 128),
-    (2, 64, 8, 128),
-]
 
 
 @pytest.mark.parametrize("T,K,th,tw", SWEEP)
@@ -134,41 +101,3 @@ def test_dispatch_on_cpu_tensors():
     f.requires_grad_(True)
     ops.rasterize_tiles(f, o, tile_h=8, tile_w=16).sum().backward()
     assert f.grad is not None and torch.isfinite(f.grad).all()
-
-
-# ---------------------------------------------------------------------------
-# On the card (skipped without one)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("T,K,th,tw", SWEEP + [(37, 256, 16, 16),
-                                              (37, 300, 8, 128)])
-def test_cuda_kernel_matches_plain_version(cuda, T, K, th, tw):
-    f, o = tile_inputs(T * 100 + K, T, K, th, tw)
-    ft, ot = torch.from_numpy(f).to(cuda), torch.from_numpy(o).to(cuda)
-    before = rasterize.LAUNCHES
-    out = ops.rasterize_tiles(ft, ot, tile_h=th, tile_w=tw)
-    assert rasterize.LAUNCHES == before + 1
-    plain = ref.rasterize_tiles_ref(ft, ot, tile_h=th, tile_w=tw)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
-                               rtol=TOL, atol=TOL)
-
-
-def test_cuda_kernel_refuses_plain_path_and_fake_backward(cuda):
-    f, o = (torch.from_numpy(a).to(cuda) for a in tile_inputs(2, 2, 8, 8, 16))
-    with pytest.raises(ValueError):
-        ops.rasterize_tiles(f, o, tile_h=8, tile_w=16, impl="ref")
-    with pytest.raises(ValueError):          # 64 x 32 = 2048 > 1024 threads
-        rasterize.rasterize_fwd(f, o, tile_h=64, tile_w=32)
-    f.requires_grad_(True)
-    out = ops.rasterize_tiles(f, o, tile_h=8, tile_w=16)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()

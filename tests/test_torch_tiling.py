@@ -263,8 +263,10 @@ def test_features_gather_untile():
         np.testing.assert_array_equal(got, want)
         got_b = tt.untile_image(torch.from_numpy(np.stack([tiles] * 2)), t2)
         np.testing.assert_array_equal(got_b[1].numpy(), want)
-    np.testing.assert_array_equal(tt.tile_origins(tgrid).numpy(),
+    np.testing.assert_array_equal(tt.tile_origins(tgrid, "cpu").numpy(),
                                   np.asarray(jt.tile_origins(grid)))
+    with pytest.raises(TypeError):           # the device is not defaulted
+        tt.tile_origins(tgrid)
 
 
 def test_quantize_pose_and_slice_table():
