@@ -10,13 +10,17 @@ Phases (any failure propagates and the script exits nonzero):
              ``rasterize_bwd.cu`` under ``src/repro_torch/kernels/csrc/``,
              with nvcc (the two builds run in parallel).
 3. kernels   hold each kernel against its plain PyTorch versions on the card
-             (K in {1, 16, 64, 256, 300}, tiles 16x16 and 8x128, dead and
-             saturated splats, 37 tiles): the forward at max abs error
-             <= 1e-5, the backward at the reference's saturated-case gate
-             (rtol = atol = 5e-4 against autograd of the plain forward, and
-             2e-4 against the single-sweep emulation), padding columns and
-             dead slots exactly 0; a backward through the dispatcher
-             launches ``rasterize_bwd`` once.
+             (tiles 16x16 and 8x128 at K in {1, 16, 64, 256, 300}, and the
+             launch layout's edge cases: tiles 1x1, 5x7, 8x16, 32x32 at K
+             on the chunk and row-group edges; dead and saturated splats,
+             37 tiles): the forward at max abs error <= 1e-5, the backward
+             at the reference's saturated-case gate (rtol = atol = 5e-4
+             against autograd of the plain forward, and 2e-4 against the
+             single-sweep emulation), padding columns and dead slots
+             exactly 0, two runs equal; a backward through the dispatcher
+             launches ``rasterize_bwd`` once.  Then each kernel's inner
+             loop is counted from the built library's SASS (``cuobjdump``)
+             for its issue-rate ceiling.
 4. serve     the paper's smallest dataset at full size: the 4,000,000-point
              kingsnake isosurface as a merged splat model, served by
              ``GSRenderServer`` at 1024x1024 with 16x16 tiles (K=64,
@@ -38,11 +42,17 @@ Phases (any failure propagates and the script exits nonzero):
              during training, merged PSNR/SSIM printed.  The same pipeline
              on a small scene on the card and on the CPU must agree.
 6. timing    one train step's own tier tables (partition 0's initial model,
-             view 0, the first probe's caps): the backward kernel against
-             its plain version on the top tier, the forward at every
-             tier's K, the time of each stage of one step, and a
+             view 0, the first probe's caps): both kernels against their
+             plain versions at every tier's K, each with its own bound and
+             issue-rate ceiling, the time of each stage of one step, and a
              ``torch.profiler`` trace of three steps (device time by
              kernel, the device's busy share of the window).
+
+Kernel times are CUDA-event times over a run of back-to-back launches per
+event pair, divided by the count (``ms``); ``call_ms`` brackets one call,
+wrapper and enqueue included.  ``python3 chip_smoke.py --save-inputs DIR``
+also saves the timed kernels' inputs (the serving dispatch's tile table and
+the train step's tier tables) to ``DIR`` for ``tools/torch_kernel_ab.py``.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Phase 5 rehearses on the CPU at a
@@ -52,6 +62,7 @@ a scene of a few thousand splats the 512 children of an event raise the
 loss for some steps, so the loss check would see the jump).
 """
 
+import argparse
 import contextlib
 import json
 import math
@@ -100,16 +111,30 @@ from repro_torch.kernels import ops, rasterize, ref  # noqa: E402
 #: cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: operations counted per splat-pixel (see the notes in rasterize_fwd.cu
-#: and rasterize_bwd.cu)
+#: operations per splat-pixel of the algorithm, as the plain version writes
+#: it (the notes in rasterize_fwd.cu and rasterize_bwd.cu): the count of
+#: work behind each bound, not the instructions a kernel issues (those are
+#: counted from SASS for the issue-rate ceiling, ``rasterize.hot_loop``)
 OPS_PER_SPLAT_PIXEL = 27
 BWD_OPS_PER_SPLAT_PIXEL = 85
+#: warp instructions an SM issues per clock (4 schedulers, one each)
+ISSUE_PER_CLOCK = 4
 TOL = 1e-5
 #: backward gates: the reference's saturated-case tolerance against autograd
 #: of the plain forward (tests/test_kernel_rasterize.py:145), and its
 #: unsaturated one against the single-sweep emulation of the same algorithm
 BWD_TOL = 5e-4
 BWD_EMUL_TOL = 2e-4
+#: the sweeps: the tiles the port uses at K across one and several chunks,
+#: and the launch layout's edge cases -- tiles whose pixel count is not a
+#: multiple of 32 x 4 or whose threads are not whole columns -- at K on the
+#: old and new chunk edges (32; forward 128, backward 96) and row groups (3)
+SWEEP = [(th, tw, K) for th, tw in ((16, 16), (8, 128)) for K in (1, 16, 64, 256, 300)]
+SWEEP += [
+    (th, tw, K)
+    for th, tw in ((1, 1), (5, 7), (8, 16), (32, 32))
+    for K in (1, 31, 33, 97, 129)
+]
 
 
 def log(msg):
@@ -154,18 +179,17 @@ def kernel_phase(device):
     """Kernel vs both plain versions over the sweep -> max abs error."""
     rng = np.random.default_rng(0)
     worst = 0.0
-    for th, tw in ((16, 16), (8, 128)):
-        for K in (1, 16, 64, 256, 300):
-            feats, origins = tile_inputs(rng, 37, K, th, tw, device)
-            out = rasterize.rasterize_fwd(feats, origins, tile_h=th, tile_w=tw)
-            err = max(
-                (out - fn(feats, origins, tile_h=th, tile_w=tw)).abs().max().item()
-                for fn in (ref.rasterize_tiles_ref, ref.rasterize_tiles_unrolled)
-            )
-            log(f"kernel K={K:3d} tile {th}x{tw}: max abs err {err:.3e}")
-            if not err <= TOL:
-                raise AssertionError(f"K={K} tile {th}x{tw}: err {err} > {TOL}")
-            worst = max(worst, err)
+    for th, tw, K in SWEEP:
+        feats, origins = tile_inputs(rng, 37, K, th, tw, device)
+        out = rasterize.rasterize_fwd(feats, origins, tile_h=th, tile_w=tw)
+        err = max(
+            (out - fn(feats, origins, tile_h=th, tile_w=tw)).abs().max().item()
+            for fn in (ref.rasterize_tiles_ref, ref.rasterize_tiles_unrolled)
+        )
+        log(f"kernel K={K:3d} tile {th}x{tw}: max abs err {err:.3e}")
+        if not err <= TOL:
+            raise AssertionError(f"K={K} tile {th}x{tw}: err {err} > {TOL}")
+        worst = max(worst, err)
     return worst
 
 
@@ -181,38 +205,37 @@ def bwd_kernel_phase(device):
     against the plain version."""
     rng = np.random.default_rng(1)
     worst = 0.0
-    for th, tw in ((16, 16), (8, 128)):
-        for K in (1, 16, 64, 256, 300):
-            feats, origins = tile_inputs(rng, 37, K, th, tw, device, dead_frac=0.25)
-            out = rasterize.rasterize_fwd(feats, origins, tile_h=th, tile_w=tw)
-            gout = torch.tensor(
-                rng.normal(size=tuple(out.shape)), dtype=torch.float32, device=device
-            )
-            args = (feats, origins, out, gout)
-            got = rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
-            again = rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
-            plain = ref.rasterize_bwd_ref(*args, tile_h=th, tile_w=tw)
-            emul = ref.rasterize_bwd_emulate(*args, tile_h=th, tile_w=tw)
-            torch.cuda.synchronize()
-            err = (got - plain).abs().max().item()
-            g_ref = bwd_gate(got, plain, BWD_TOL)
-            g_emul = bwd_gate(got, emul, BWD_EMUL_TOL)
-            dead = feats[..., 8] == 0
-            log(
-                f"bwd K={K:3d} tile {th}x{tw}: max abs err {err:.3e} vs plain "
-                f"(|g| max {plain.abs().max().item():.3e}), "
-                f"{(got - emul).abs().max().item():.3e} vs emulation; gate "
-                f"{g_ref:.3f} / {g_emul:.3f}"
-            )
-            if not (g_ref <= 1.0 and g_emul <= 1.0):
-                raise AssertionError(f"bwd K={K} tile {th}x{tw}: gate {g_ref} {g_emul}")
-            if got[..., 9:].abs().max().item() != 0.0:
-                raise AssertionError("padding columns carry gradient")
-            if dead.any() and got[..., :8][dead].abs().max().item() != 0.0:
-                raise AssertionError("dead slots carry geometry/colour gradient")
-            if not torch.equal(got, again):
-                raise AssertionError("the backward kernel is not deterministic")
-            worst = max(worst, err)
+    for th, tw, K in SWEEP:
+        feats, origins = tile_inputs(rng, 37, K, th, tw, device, dead_frac=0.25)
+        out = rasterize.rasterize_fwd(feats, origins, tile_h=th, tile_w=tw)
+        gout = torch.tensor(
+            rng.normal(size=tuple(out.shape)), dtype=torch.float32, device=device
+        )
+        args = (feats, origins, out, gout)
+        got = rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
+        again = rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
+        plain = ref.rasterize_bwd_ref(*args, tile_h=th, tile_w=tw)
+        emul = ref.rasterize_bwd_emulate(*args, tile_h=th, tile_w=tw)
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        g_ref = bwd_gate(got, plain, BWD_TOL)
+        g_emul = bwd_gate(got, emul, BWD_EMUL_TOL)
+        dead = feats[..., 8] == 0
+        log(
+            f"bwd K={K:3d} tile {th}x{tw}: max abs err {err:.3e} vs plain "
+            f"(|g| max {plain.abs().max().item():.3e}), "
+            f"{(got - emul).abs().max().item():.3e} vs emulation; gate "
+            f"{g_ref:.3f} / {g_emul:.3f}"
+        )
+        if not (g_ref <= 1.0 and g_emul <= 1.0):
+            raise AssertionError(f"bwd K={K} tile {th}x{tw}: gate {g_ref} {g_emul}")
+        if got[..., 9:].abs().max().item() != 0.0:
+            raise AssertionError("padding columns carry gradient")
+        if dead.any() and got[..., :8][dead].abs().max().item() != 0.0:
+            raise AssertionError("dead slots carry geometry/colour gradient")
+        if not torch.equal(got, again):
+            raise AssertionError("the backward kernel is not deterministic")
+        worst = max(worst, err)
     # the dispatcher never takes the plain version on a CUDA tensor, and its
     # backward is the kernel: exactly one rasterize_bwd launch per backward
     feats, origins = tile_inputs(rng, 3, 8, 16, 16, device)
@@ -374,26 +397,116 @@ def cached_tables(server, rig, results, views):
     return torch.stack(idx), torch.stack(score)
 
 
-def cuda_time_ms(fn, reps):
-    """Median of ``reps`` CUDA-event timings of ``fn`` (after a warm-up)."""
+def cuda_time_ms(fn, reps, launches=1, hold_ms=0.0):
+    """Median over ``reps`` CUDA-event pairs of the time per call of ``fn``,
+    each pair bracketing ``launches`` back-to-back calls (after a warm-up).
+    ``hold_ms`` first keeps the device busy that long (``torch.cuda._sleep``,
+    before the start event), so the host enqueues the whole run before the
+    device reaches it and the calls run without gaps even where a call's
+    host side takes longer than its kernel."""
     fn()
     torch.cuda.synchronize()
+    cycles = int(hold_ms * 2e6)  # at most 2 GHz: at least hold_ms
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cycles:
+            torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
-def timing_phase(server, rig, results, views, reps=25):
+def kernel_times(fn, reps=15, window_ms=4.0):
+    """A kernel wrapper's time two ways -> {"ms": per launch, over runs of
+    back-to-back launches filling at least ``window_ms`` of device time per
+    event pair, enqueued behind a hold of the device; "call_ms": one call
+    per event pair (wrapper and enqueue included, what one caller waits);
+    "launches": the launches per pair}."""
+    call = cuda_time_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e2  # host time of one call
+    torch.cuda.synchronize()
+    n = max(10, min(1000, math.ceil(window_ms / max(call, 1e-3))))
+    ms = cuda_time_ms(fn, reps, n, hold_ms=2 * n * host_ms + 1.0)
+    return {"ms": ms, "call_ms": call, "launches": n}
+
+
+def sm_clock_mhz(fn, seconds=1.0):
+    """Median SM clock (MHz) that ``nvidia-smi`` samples every 20 ms while
+    ``fn`` runs back to back for ``seconds``, and the card's maximum."""
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm"]
+    query += ["--format=csv,noheader,nounits", "-i", "0"]
+    proc = subprocess.Popen(query + ["-lms", "20"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate()
+    rows = [[float(x) for x in ln.split(",")] for ln in text.splitlines() if ln.strip()]
+    if not rows:
+        raise AssertionError("nvidia-smi gave no clock samples")
+    return statistics.median(r[0] for r in rows), rows[0][1]
+
+
+def issue_ceiling_ms(loop, T, K, th, tw, clock_mhz):
+    """The least time the kernel's inner loop can take at the issue rate:
+    its instructions per splat-pixel (``loop``, from ``rasterize.hot_loop``)
+    over every (thread, slot) of the launch, 32 threads a warp instruction,
+    ISSUE_PER_CLOCK warp instructions per clock per SM."""
+    threads, ppt, _ = rasterize.launch_geometry(th, tw)
+    warp_instr = T * K * threads * ppt / 32 * loop["per_splat_pixel"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return warp_instr / (ISSUE_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
+
+
+def time_against_plain(kernel, plain, reps=15, plain_reps=5):
+    """In turns within one process: plain, kernel, kernel, plain -> the
+    kernel's back-to-back ``ms`` (median of the two, and both), its
+    ``call_ms``, the plain version's one-call ``plain_ms``."""
+    p1 = cuda_time_ms(plain, plain_reps)
+    k1 = kernel_times(kernel, reps)
+    k2 = kernel_times(kernel, reps)
+    p2 = cuda_time_ms(plain, plain_reps)
+    return {
+        "ms": statistics.median([k1["ms"], k2["ms"]]),
+        "ms_runs": [k1["ms"], k2["ms"]],
+        "call_ms": statistics.median([k1["call_ms"], k2["call_ms"]]),
+        "launches_per_pair": k1["launches"],
+        "plain_ms": statistics.median([p1, p2]),
+    }
+
+
+def bound(splat_pixels, ops_per_splat_pixel, n_bytes):
+    """The least time of the work: its operations over the f32 peak or its
+    bytes (each input read once, each output written once) over the memory
+    rate, whichever is longer."""
+    t_ops = splat_pixels * ops_per_splat_pixel / PEAK_F32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops_ms": t_ops,
+        "bytes_ms": t_bytes,
+    }
+
+
+def timing_phase(server, rig, results, views, issue, reps=15, save_dir=None):
     """Kernel vs plain version on one dispatch's own tile features (the
     canonical cameras, cached tables and projection the server used):
-    agreement with the served images, error, times and bound."""
+    agreement with the served images, error, times, bound and issue-rate
+    ceiling (``issue``: the forward's hot loop; the SM clock is sampled
+    here, under this shape)."""
     grid = server.grid
     th, tw = grid.tile_h, grid.tile_w
     idx, score = cached_tables(server, rig, results, views)
@@ -418,34 +531,31 @@ def timing_phase(server, rig, results, views, reps=25):
     if not (err <= TOL and served_err <= TOL):
         raise AssertionError(f"serving-shape disagreement {err} / {served_err}")
 
+    if save_dir is not None:
+        torch.save({"feats": flat, "origins": origins, "tile": (th, tw)},
+                   Path(save_dir) / "serve.pt")
+
     def kernel():
         rasterize.rasterize_fwd(flat, origins, tile_h=th, tile_w=tw)
 
     def plain_version():
         ref.rasterize_tiles_ref(flat, origins, tile_h=th, tile_w=tw)
 
-    # in turns within one process: plain, kernel, kernel, plain
-    ms_p1 = cuda_time_ms(plain_version, reps)
-    ms_k1 = cuda_time_ms(kernel, reps)
-    ms_k2 = cuda_time_ms(kernel, reps)
-    ms_p2 = cuda_time_ms(plain_version, reps)
-    ops_count = V * T * K * th * tw * OPS_PER_SPLAT_PIXEL
+    stats = time_against_plain(kernel, plain_version, reps)
     n_bytes = 4 * (flat.numel() + origins.numel() + out.numel())
-    t_ops = ops_count / PEAK_F32_FLOPS * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    log(
-        f"timing V={V} T={T} K={K} tile {th}x{tw}: kernel {ms_k1:.4f} / "
-        f"{ms_k2:.4f} ms, plain {ms_p1:.3f} / {ms_p2:.3f} ms; bound "
-        f"{max(t_ops, t_bytes):.4f} ms ({ops_count / 1e9:.2f} GFLOP -> "
-        f"{t_ops:.4f} ms, {n_bytes / 1e6:.1f} MB -> {t_bytes:.4f} ms)"
+    stats.update(bound(V * T * K * th * tw, OPS_PER_SPLAT_PIXEL, n_bytes))
+    clock, clock_max = sm_clock_mhz(kernel)
+    stats.update(
+        max_abs_err=err,
+        clock_mhz=clock,
+        ceiling_ms=issue_ceiling_ms(issue, V * T, K, th, tw, clock),
     )
-    return {
-        "max_abs_err": err,
-        "ms": statistics.median([ms_k1, ms_k2]),
-        "plain_ms": statistics.median([ms_p1, ms_p2]),
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
+    log(
+        f"timing fwd V={V} T={T} K={K} tile {th}x{tw}: "
+        + json.dumps(stats)
+        + f" (SM clock {clock:.0f} of {clock_max:.0f} MHz)"
+    )
+    return stats
 
 
 def breakdown_phase(server, rig, results, views, assign):
@@ -776,10 +886,11 @@ def step_tables(splats, grid, k_tiers, caps, assign):
     )
 
 
-def train_timing_phase(rec, reps=25, plain_reps=5):
-    """Kernel vs plain version on one train step's own tier tables: the
-    forward at each tier's K, the backward on the top tier -> (the backward
-    kernel's stats, the forward's per-tier stats)."""
+def train_timing_phase(rec, issue, reps=15, plain_reps=5, save_dir=None):
+    """Both kernels vs their plain versions on one train step's own tier
+    tables, at each tier's K, each tier with its own bound and issue-rate
+    ceiling (``issue``: {kernel: hot loop}; the SM clock is sampled under
+    the top tier) -> {"fwd": {K: stats}, "bwd": {K: stats}}."""
     g, cam, grid, k_tiers, caps, assign = step_inputs(rec)
     th, tw = grid.tile_h, grid.tile_w
     with torch.no_grad():
@@ -789,10 +900,28 @@ def train_timing_phase(rec, reps=25, plain_reps=5):
         f"step tables: ladder {k_tiers}, caps {caps}, tiles placed "
         f"{plan.counts[0].tolist()}, assignment {assign}"
     )
-    fwd_tiers = {}
-    for k, tf, og in zip(k_tiers, feats, origins):
-        if tf.shape[0] == 0:
-            continue
+    tiers = [t for t in zip(k_tiers, feats, origins) if t[1].shape[0]]
+    gen = torch.Generator(device=tiers[0][1].device).manual_seed(0)
+    planes = []
+    for k, tf, og in tiers:
+        out = rasterize.rasterize_fwd(tf, og, tile_h=th, tile_w=tw)
+        gout = torch.randn(tuple(out.shape), generator=gen, device=tf.device)
+        planes.append((k, tf, og, out, gout))
+    if save_dir is not None:
+        torch.save({"tiers": planes, "tile": (th, tw)}, Path(save_dir) / "train.pt")
+    _, tf, og, out, gout = planes[-1]
+    top = dict(tile_h=th, tile_w=tw)
+    clocks = {
+        "fwd": sm_clock_mhz(lambda: rasterize.rasterize_fwd(tf, og, **top)),
+        "bwd": sm_clock_mhz(lambda: rasterize.rasterize_bwd(tf, og, out, gout, **top)),
+    }
+    clocks = {name: median for name, (median, _) in clocks.items()}
+    log(f"SM clock (MHz) under the top tier: {clocks}")
+    result = {"fwd": {}, "bwd": {}}
+    for k, tf, og, out, gout in planes:
+        T = tf.shape[0]
+        n = T * k * th * tw
+        args = (tf, og, out, gout)
 
         def kernel_fwd():
             return rasterize.rasterize_fwd(tf, og, tile_h=th, tile_w=tw)
@@ -800,64 +929,41 @@ def train_timing_phase(rec, reps=25, plain_reps=5):
         def plain_fwd():
             return ref.rasterize_tiles_ref(tf, og, tile_h=th, tile_w=tw)
 
-        out = kernel_fwd()
-        err = (out - plain_fwd()).abs().max().item()
+        def kernel_bwd():
+            return rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
+
+        def plain_bwd():
+            return ref.rasterize_bwd_ref(*args, tile_h=th, tile_w=tw)
+
+        err = (kernel_fwd() - plain_fwd()).abs().max().item()
         if not err <= TOL:
             raise AssertionError(f"tier K={k}: forward err {err}")
-        t_ops = tf.shape[0] * k * th * tw * OPS_PER_SPLAT_PIXEL / PEAK_F32_FLOPS
-        t_bytes = 4 * (tf.numel() + og.numel() + out.numel()) / PEAK_BYTES_PER_S
-        fwd_tiers[k] = {
-            "tiles": tf.shape[0],
-            "ms": cuda_time_ms(kernel_fwd, reps),
-            "plain_ms": cuda_time_ms(plain_fwd, plain_reps),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "max_abs_err": err,
-        }
-        log(f"train fwd tier K={k}: {json.dumps(fwd_tiers[k])}")
-    k, tf, og = [t for t in zip(k_tiers, feats, origins) if t[1].shape[0]][-1]
-    out = rasterize.rasterize_fwd(tf, og, tile_h=th, tile_w=tw)
-    gen = torch.Generator(device=tf.device).manual_seed(0)
-    gout = torch.randn(tuple(out.shape), generator=gen, device=tf.device)
-    args = (tf, og, out, gout)
-
-    def kernel():
-        return rasterize.rasterize_bwd(*args, tile_h=th, tile_w=tw)
-
-    def plain_version():
-        return ref.rasterize_bwd_ref(*args, tile_h=th, tile_w=tw)
-
-    got, want = kernel(), plain_version()
-    err = (got - want).abs().max().item()
-    gate = bwd_gate(got, want, BWD_TOL)
-    log(
-        f"train bwd top tier K={k} ({tf.shape[0]} tiles): max abs err {err:.3e} "
-        f"(|g| max {want.abs().max().item():.3e}), gate {gate:.3f}"
-    )
-    if not gate <= 1.0:
-        raise AssertionError(f"train-shape backward disagrees: gate {gate}")
-    # in turns within one process: plain, kernel, kernel, plain
-    ms_p1 = cuda_time_ms(plain_version, plain_reps)
-    ms_k1 = cuda_time_ms(kernel, reps)
-    ms_k2 = cuda_time_ms(kernel, reps)
-    ms_p2 = cuda_time_ms(plain_version, plain_reps)
-    n = tf.shape[0] * k * th * tw
-    t_ops = n * BWD_OPS_PER_SPLAT_PIXEL / PEAK_F32_FLOPS * 1e3
-    n_bytes = 4 * (2 * tf.numel() + og.numel() + out.numel() + gout.numel())
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    log(
-        f"timing bwd T={tf.shape[0]} K={k} tile {th}x{tw}: kernel {ms_k1:.4f} / "
-        f"{ms_k2:.4f} ms, plain {ms_p1:.3f} / {ms_p2:.3f} ms; bound "
-        f"{max(t_ops, t_bytes):.4f} ms ({n * BWD_OPS_PER_SPLAT_PIXEL / 1e9:.2f} "
-        f"GFLOP -> {t_ops:.4f} ms, {n_bytes / 1e6:.1f} MB -> {t_bytes:.4f} ms)"
-    )
-    stats = {
-        "max_abs_err": err,
-        "ms": statistics.median([ms_k1, ms_k2]),
-        "plain_ms": statistics.median([ms_p1, ms_p2]),
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
-    return stats, fwd_tiers
+        got, want = kernel_bwd(), plain_bwd()
+        bwd_err = (got - want).abs().max().item()
+        gate = bwd_gate(got, want, BWD_TOL)
+        if not gate <= 1.0:
+            raise AssertionError(f"tier K={k}: backward disagrees, gate {gate}")
+        fwd_bytes = 4 * (tf.numel() + og.numel() + out.numel())
+        bwd_bytes = 4 * (2 * tf.numel() + og.numel() + out.numel() + gout.numel())
+        for name, kern, plain, ops_per, n_bytes, e in (
+            ("fwd", kernel_fwd, plain_fwd, OPS_PER_SPLAT_PIXEL, fwd_bytes, err),
+            ("bwd", kernel_bwd, plain_bwd, BWD_OPS_PER_SPLAT_PIXEL, bwd_bytes, bwd_err),
+        ):
+            stats = time_against_plain(kern, plain, reps, plain_reps)
+            stats.update(bound(n, ops_per, n_bytes))
+            stats.update(
+                tiles=T,
+                max_abs_err=e,
+                clock_mhz=clocks[name],
+                ceiling_ms=issue_ceiling_ms(
+                    issue[f"rasterize_{name}"], T, k, th, tw, clocks[name]
+                ),
+            )
+            if name == "bwd":
+                stats["gate"] = gate
+            result[name][k] = stats
+            log(f"train {name} tier K={k}: {json.dumps(stats)}")
+    return result
 
 
 def train_breakdown_phase(rec):
@@ -976,7 +1082,17 @@ def train_profile_phase(rec, steps=3, top=12):
     return rows, share, wall_us / steps / 1e3
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    parser.add_argument(
+        "--save-inputs",
+        metavar="DIR",
+        help="also save the timed kernels' inputs to DIR (serve.pt, train.pt)",
+    )
+    args = parser.parse_args(argv)
+    save_dir = args.save_inputs
+    if save_dir is not None:
+        Path(save_dir).mkdir(parents=True, exist_ok=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1002,9 +1118,14 @@ def main():
     libs = rasterize.build(verbose=True)
     log(f"built {[p.name for p in libs.values()]} in {time.perf_counter() - t0:.2f} s")
 
-    # 3. kernels against the plain versions
+    # 3. kernels against the plain versions; their inner loops from SASS
     sweep_err = kernel_phase(device)
     bwd_sweep_err = bwd_kernel_phase(device)
+    issue = {
+        name: rasterize.hot_loop(rasterize.sass(name), f"{name}_kernelILb1E")
+        for name in rasterize.SOURCES
+    }
+    log(f"inner loops from SASS (the one-column build): {json.dumps(issue)}")
 
     # 4. serve at paper scale; the launch count covers the two passes only
     torch.cuda.reset_peak_memory_stats()
@@ -1024,7 +1145,9 @@ def main():
     # the forward kernel's time on the first dispatch's own features
     near = [v for v in range(n_views) if passes[0][v].rung == 0]
     near = near[: server.cfg.max_batch]
-    stats = timing_phase(server, rig, passes[0], near)
+    stats = timing_phase(
+        server, rig, passes[0], near, issue["rasterize_fwd"], save_dir=save_dir
+    )
     assign = (info["assign_impl"], info["assign_budget"])
     breakdown_phase(server, rig, passes[0], near, assign)
     del server, rig, passes
@@ -1041,11 +1164,13 @@ def main():
     small_pipeline_check(device)
 
     # 6. kernel times on one train step's own tier tables, and its stages
-    bwd_stats, fwd_tiers = train_timing_phase(records[0])
+    tiers = train_timing_phase(records[0], issue, save_dir=save_dir)
+    bwd_stats = tiers["bwd"][max(tiers["bwd"])]  # the top tier
     train_breakdown_phase(records[0])
     train_profile_phase(records[0])
     fwd_errs = [sweep_err, stats["max_abs_err"]]
-    fwd_errs += [t["max_abs_err"] for t in fwd_tiers.values()]
+    fwd_errs += [t["max_abs_err"] for t in tiers["fwd"].values()]
+    bwd_errs = [bwd_sweep_err] + [t["max_abs_err"] for t in tiers["bwd"].values()]
     log(
         f"launches on the main paths: serve fwd {serve_launches}; train fwd "
         f"{train_launches['fwd']} bwd {train_launches['bwd']}"
@@ -1070,7 +1195,7 @@ def main():
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
             "launches": train_launches["bwd"],
-            "max_abs_err": max(bwd_sweep_err, bwd_stats["max_abs_err"]),
+            "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],
             "bound_ms": bwd_stats["bound_ms"],

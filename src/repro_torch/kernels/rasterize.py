@@ -11,6 +11,13 @@ and loaded with ``ctypes``.  A library's file name carries a hash of every
 file under ``csrc/`` and of the flags, so an edit to any source rebuilds
 both.
 
+Both kernels run one block per tile with ``PIXELS_PER_THREAD`` pixels per
+thread; ``launch_geometry`` computes the block and its shared memory, and
+``slot_pixels`` the pixel each (thread, slot) carries, as
+``csrc/tile_layout.cuh`` lays them out (the C entry points refuse any
+other layout).  ``hot_loop`` counts the instructions of a built kernel's
+inner loop from its SASS, for the issue-rate ceiling.
+
 ``rasterize_fwd`` / ``rasterize_bwd`` take CUDA tensors only; the plain
 PyTorch versions live in ``kernels/ref.py`` and the dispatcher
 (``kernels/ops.py``) picks between them by the tensors' device.
@@ -21,9 +28,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -40,9 +49,57 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-MAX_TILE_PIXELS = 1024            # one thread per pixel, one block per tile
+#: pixels each thread carries (csrc/tile_layout.cuh kPix); a block is
+#: whole warps of at most 1024 / 4 = 256 threads, one block per tile
+PIXELS_PER_THREAD = 4
+MAX_TILE_PIXELS = 1024
+#: feature rows staged per shared-memory pass (kChunk of each .cu), the
+#: backward's rows per warp reduction (kGroup) and its 32 sums per group
+#: (kValues), and the bytes of one staged row (kRowFloats = 12 floats)
+FWD_CHUNK = 128
+BWD_CHUNK = 96
+BWD_GROUP = 3
+BWD_VALUES = 32
+ROW_BYTES = 48
 
 _libs = None
+
+
+class LaunchGeometry(NamedTuple):
+    threads: int             # whole warps, <= MAX_TILE_PIXELS / 4
+    pixels_per_thread: int
+    smem_bytes: int          # dynamic shared memory of one block
+
+
+def launch_geometry(tile_h: int, tile_w: int, *,
+                    backward: bool = False) -> LaunchGeometry:
+    """The block of one tile for the forward (or the backward) kernel:
+    ceil(th * tw / 4) threads rounded up to whole warps, 4 pixels each, and
+    its dynamic shared memory (the staged rows; the backward adds one slot
+    per warp, row group and value).  Above 48 KB the C entry points raise
+    the kernel's dynamic shared-memory limit to it."""
+    npix = tile_h * tile_w
+    if not (tile_h >= 1 and tile_w >= 1 and npix <= MAX_TILE_PIXELS):
+        raise ValueError(f"tile {tile_h}x{tile_w} needs 1..{MAX_TILE_PIXELS} "
+                         f"pixels ({PIXELS_PER_THREAD} per thread, at most "
+                         f"{MAX_TILE_PIXELS // PIXELS_PER_THREAD} threads)")
+    threads = -(-npix // PIXELS_PER_THREAD)
+    threads = -(-threads // 32) * 32
+    if backward:
+        slots = (threads // 32) * (BWD_CHUNK // BWD_GROUP) * BWD_VALUES
+        smem = BWD_CHUNK * ROW_BYTES + 4 * slots
+    else:
+        smem = FWD_CHUNK * ROW_BYTES
+    return LaunchGeometry(threads, PIXELS_PER_THREAD, smem)
+
+
+def slot_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
+    """(threads, pixels_per_thread) int64: the row-major pixel that thread
+    t carries in slot s, ``s * threads + t`` (the kernels' rule), or -1
+    where that slot is idle."""
+    threads, ppt, _ = launch_geometry(tile_h, tile_w)
+    p = torch.arange(ppt)[None, :] * threads + torch.arange(threads)[:, None]
+    return torch.where(p < tile_h * tile_w, p, -1)
 
 
 def _nvcc() -> str:
@@ -103,16 +160,64 @@ def build(*, verbose: bool = False) -> dict:
     return libs
 
 
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of kernel ``name``'s built library (the
+    toolkit's ``cuobjdump``, beside ``nvcc``)."""
+    lib = build()[name]
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                         r"([^;]*);")
+
+
+def hot_loop(sass_text: str, function: str) -> dict:
+    """The innermost loop of the SASS function whose (mangled) name holds
+    ``function`` that issues a ``MUFU.EX2`` -- each splat-pixel's one
+    ``expf`` -- as instruction counts: every instruction between a
+    backward branch (``BRA 0x...``, as ``cuobjdump`` prints it) and its
+    target once.  ``per_splat_pixel`` is the instructions over the EX2s,
+    what one pixel's step over one row costs a thread, row loads, loop
+    overhead and warp reductions included."""
+    body, name = [], None
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            continue
+        m = _SASS_INSTR.search(line)
+        if m and name is not None and function in name:
+            body.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    if not body:
+        raise ValueError(f"no SASS function matching {function!r}")
+    loops = []
+    for addr, op, args in body:
+        to = re.search(r"0x([0-9a-f]+)", args)
+        if op.split(".")[0] == "BRA" and to and int(to.group(1), 16) <= addr:
+            ops = [o for a, o, _ in body if int(to.group(1), 16) <= a <= addr]
+            if "MUFU.EX2" in ops:
+                loops.append(ops)
+    if not loops:
+        raise ValueError(f"{function}: no loop issues MUFU.EX2")
+    ops = min(loops, key=len)
+    count = {"instructions": len(ops), "ex2": ops.count("MUFU.EX2")}
+    for prefix in ("SHFL", "MUFU", "LDS", "BRA", "FFMA", "FMUL", "FADD"):
+        count[prefix.lower()] = sum(o.split(".")[0] == prefix for o in ops)
+    count["per_splat_pixel"] = count["instructions"] / count["ex2"]
+    return count
+
+
 def _load():
     global _libs
     if _libs is None:
         paths = build()
         fwd = ctypes.CDLL(str(paths["rasterize_fwd"])).rasterize_fwd_launch
-        fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = ctypes.CDLL(str(paths["rasterize_bwd"])).rasterize_bwd_launch
-        bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
         _libs = {"fwd": fwd, "bwd": bwd}
@@ -138,9 +243,7 @@ def _check_tiles(name, feats, origins, tile_h, tile_w):
                          f"{tuple(origins.shape)}")
     if not (feats.is_contiguous() and origins.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
-    if not 1 <= tile_h * tile_w <= MAX_TILE_PIXELS:
-        raise ValueError(f"tile {tile_h}x{tile_w} needs 1..{MAX_TILE_PIXELS} "
-                         "pixels (one thread per pixel)")
+    launch_geometry(tile_h, tile_w)         # raises on a tile out of range
     if T >= 2**31:
         raise ValueError(f"{T} tiles exceed the kernel's grid")
     return feats, origins, tuple(feats.shape)
@@ -159,10 +262,11 @@ def rasterize_fwd(feats, origins, *, tile_h: int, tile_w: int):
     if T == 0:
         return out
     launch = _load()["fwd"]
+    geometry = launch_geometry(tile_h, tile_w)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = launch(feats.data_ptr(), origins.data_ptr(), out.data_ptr(), T,
-                     K, F, tile_h, tile_w, stream)
+                     K, F, tile_h, tile_w, *geometry, stream)
     if err != 0:
         raise RuntimeError(f"rasterize_fwd: CUDA launch failed with error "
                            f"{err}")
@@ -198,11 +302,12 @@ def rasterize_bwd(feats, origins, out, gout, *, tile_h: int, tile_w: int):
     if T == 0 or K == 0:
         return gfeats
     launch = _load()["bwd"]
+    geometry = launch_geometry(tile_h, tile_w, backward=True)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = launch(feats.data_ptr(), origins.data_ptr(), out.data_ptr(),
                      gout.data_ptr(), gfeats.data_ptr(), T, K, F, tile_h,
-                     tile_w, stream)
+                     tile_w, *geometry, stream)
     if err != 0:
         raise RuntimeError(f"rasterize_bwd: CUDA launch failed with error "
                            f"{err}")

@@ -57,6 +57,14 @@ GRAD_SWEEP = [
 #: the card-only sweep adds K past one shared-memory chunk of either kernel
 CUDA_EXTRA = [(37, 256, 16, 16), (37, 300, 8, 128)]
 
+#: the launch layout's edge cases (4 pixels a thread, whole warps): tiles
+#: whose pixel count is not a multiple of 32 x 4 or whose threads do not
+#: keep one column (1x1, 5x7), and the tiles the port uses; K at the
+#: chunk edges (32 before, now 96 for the backward and 128 for the
+#: forward) and the backward's groups of 3 rows
+LAYOUT_TILES = [(1, 1), (5, 7), (8, 16), (16, 16), (8, 128), (32, 32)]
+LAYOUT_KS = [1, 31, 32, 33, 64, 95, 96, 97, 128, 129, 256, 300]
+
 
 def _splat_rows(r, T, K, th, tw):
     n = T * K
@@ -168,6 +176,81 @@ def test_cuda_backward_matches_plain_version(cuda, T, K, th, tw):
     assert got[..., 9:].abs().max().item() == 0.0
     dead = ft[..., 8] == 0                    # dead slots: only d/d opacity
     assert got[..., :8][dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("K", LAYOUT_KS)
+@pytest.mark.parametrize("th,tw", LAYOUT_TILES)
+def test_cuda_launch_layout_edges(cuda, th, tw, K):
+    """Both kernels on the layout's edge cases: the forward within 1e-5 of
+    both plain versions, the backward within 2e-4 of the emulation of its
+    algorithm, the same from run to run, padding columns and dead slots
+    exactly 0.  Against autograd of the plain forward it is held at 5e-4 on
+    every element where the algorithm itself (the emulation) holds that
+    gate -- all of them up to the reference's K = 64; past it, with
+    saturated splats (1 - alpha = 0.01), the suffix recovery's own
+    cancellation can cross it, and no kernel of this algorithm can then be
+    closer."""
+    T = 3
+    ft, ot, gt = on(cuda, *grad_inputs(1000 + 10 * K + th, T, K, th, tw))
+    out = rasterize.rasterize_fwd(ft, ot, tile_h=th, tile_w=tw)
+    for fn in (ref.rasterize_tiles_ref, ref.rasterize_tiles_unrolled):
+        np.testing.assert_allclose(
+            out.cpu().numpy(),
+            fn(ft, ot, tile_h=th, tile_w=tw).cpu().numpy(), rtol=TOL,
+            atol=TOL)
+    got = rasterize.rasterize_bwd(ft, ot, out, gt, tile_h=th, tile_w=tw)
+    again = rasterize.rasterize_bwd(ft, ot, out, gt, tile_h=th, tile_w=tw)
+    assert torch.equal(got, again)
+    plain = ref.rasterize_bwd_ref(ft, ot, out, gt, tile_h=th, tile_w=tw)
+    emul = ref.rasterize_bwd_emulate(ft, ot, out, gt, tile_h=th, tile_w=tw)
+    np.testing.assert_allclose(got.cpu().numpy(), emul.cpu().numpy(),
+                               rtol=UNSAT_TOL, atol=UNSAT_TOL)
+    held = (emul - plain).abs() <= SAT_TOL * (1 + plain.abs())
+    assert K > 64 or held.all()
+    np.testing.assert_allclose(got[held].cpu().numpy(),
+                               plain[held].cpu().numpy(), rtol=SAT_TOL,
+                               atol=SAT_TOL)
+    assert got[..., 9:].abs().max().item() == 0.0
+    dead = ft[..., 8] == 0
+    if dead.any():
+        assert got[..., :8][dead].abs().max().item() == 0.0
+
+
+def test_cuda_kernels_refuse_another_layout(cuda):
+    """The C entry points take only ``launch_geometry``'s layout: a block
+    of another size, another pixels-per-thread or too little shared memory
+    is refused (cudaErrorInvalidValue), and the wrapper raises."""
+    libs = rasterize._load()
+    ft, ot = on(cuda, *tile_inputs(3, 2, 8, 16, 16))
+    out = torch.empty((2, 4, 16, 16), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    threads, ppt, smem = rasterize.launch_geometry(16, 16)
+    for bad in ((threads * 2, ppt, smem), (threads, 1, smem),
+                (threads, ppt, smem - 4)):
+        err = libs["fwd"](ft.data_ptr(), ot.data_ptr(), out.data_ptr(), 2, 8,
+                          16, 16, 16, *bad, stream)
+        assert err == 1                       # cudaErrorInvalidValue
+    assert libs["fwd"](ft.data_ptr(), ot.data_ptr(), out.data_ptr(), 2, 8,
+                       16, 16, 16, threads, ppt, smem, stream) == 0
+
+
+@pytest.mark.parametrize("F,offset", [(9, 0), (16, 1)])
+def test_cuda_rows_staged_one_float_at_a_time(cuda, F, offset):
+    """A table whose rows are not whole 16-byte units (F = 9), or that
+    starts off a 16-byte boundary, is staged one float at a time: both
+    kernels give the same bits as on the 16-byte path."""
+    T, K, th, tw = 5, 100, 16, 16
+    ft, ot, gt = on(cuda, *grad_inputs(77, T, K, th, tw))
+    flat = torch.zeros(T * K * F + offset, device=cuda)
+    other = flat[offset:].view(T, K, F)
+    other.copy_(ft[..., :F])
+    assert (other.data_ptr() % 16 != 0) == bool(offset)
+    out = rasterize.rasterize_fwd(ft, ot, tile_h=th, tile_w=tw)
+    assert torch.equal(rasterize.rasterize_fwd(other, ot, tile_h=th,
+                                               tile_w=tw), out)
+    got = rasterize.rasterize_bwd(other, ot, out, gt, tile_h=th, tile_w=tw)
+    want = rasterize.rasterize_bwd(ft, ot, out, gt, tile_h=th, tile_w=tw)
+    assert torch.equal(got, want[..., :F])
 
 
 def test_cuda_dispatcher_backward_launches_kernel(cuda):

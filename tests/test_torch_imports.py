@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: no module of ``src/repro_torch``,
-and not ``chip_smoke.py``, imports JAX or anything of the JAX package
-``repro`` (parsed with ``ast``, so nothing is imported to check)."""
+and not ``chip_smoke.py`` or ``tools/torch_kernel_ab.py``, imports JAX or
+anything of the JAX package ``repro`` (parsed with ``ast``, so nothing is
+imported to check)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -101,3 +101,89 @@ def test_dispatch_on_cpu_tensors():
     f.requires_grad_(True)
     ops.rasterize_tiles(f, o, tile_h=8, tile_w=16).sum().backward()
     assert f.grad is not None and torch.isfinite(f.grad).all()
+
+
+#: shared memory a block can use on Hopper: 227 KB (232,448 bytes)
+MAX_SMEM_BYTES = 232_448
+#: every tile shape of 1 to 1024 pixels
+ALL_TILES = [(th, tw) for th in range(1, rasterize.MAX_TILE_PIXELS + 1)
+             for tw in range(1, rasterize.MAX_TILE_PIXELS // th + 1)]
+
+
+def test_launch_geometry_covers_every_pixel_once():
+    """Every pixel of every tile is carried by exactly one (thread, slot)
+    pair, and every other pair is idle (-1)."""
+    for th, tw in ALL_TILES:
+        slots = rasterize.slot_pixels(th, tw).flatten()
+        used = slots[slots >= 0].sort().values
+        assert torch.equal(used, torch.arange(th * tw)), (th, tw)
+
+
+def test_launch_geometry_blocks_are_whole_warps():
+    for th, tw in ALL_TILES:
+        threads, ppt, _ = rasterize.launch_geometry(th, tw)
+        assert threads % 32 == 0 and 32 <= threads <= 1024, (th, tw)
+        assert ppt == rasterize.PIXELS_PER_THREAD
+        assert threads * ppt >= th * tw > (threads - 32) * ppt, (th, tw)
+
+
+def test_launch_geometry_shared_memory_fits():
+    """Both kernels' dynamic shared memory fits Hopper's 227 KB a block;
+    the backward's grows with the block's warps, the forward's does not."""
+    for th, tw in ALL_TILES:
+        for backward in (False, True):
+            smem = rasterize.launch_geometry(th, tw, backward=backward)[2]
+            assert 0 < smem <= MAX_SMEM_BYTES, (th, tw, backward)
+    fwd = {rasterize.launch_geometry(*t).smem_bytes for t in ALL_TILES}
+    assert fwd == {rasterize.FWD_CHUNK * rasterize.ROW_BYTES}
+
+
+def test_launch_geometry_of_the_ports_tiles():
+    """16x16 runs on 2 warps and 8x128 on 8, 4 pixels a thread, and each
+    thread's pixels share a column (threads a multiple of the width)."""
+    assert rasterize.launch_geometry(16, 16) == (64, 4, 6144)
+    assert rasterize.launch_geometry(16, 16, backward=True) == (64, 4, 12800)
+    assert rasterize.launch_geometry(8, 128) == (256, 4, 6144)
+    assert rasterize.launch_geometry(8, 128, backward=True) == (256, 4, 37376)
+    for th, tw in ((16, 16), (8, 128), (8, 16)):
+        cols = rasterize.slot_pixels(th, tw) % tw
+        assert (cols == cols[:, :1]).all()
+
+
+@pytest.mark.parametrize("th,tw", [(0, 8), (8, 0), (64, 32), (1, 1025)])
+def test_launch_geometry_refuses_tiles_out_of_range(th, tw):
+    with pytest.raises(ValueError):
+        rasterize.launch_geometry(th, tw)
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_120rasterize_bwd_kernelILb1EEEvPKfS2_iiiib
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   FADD R2, R3, R4 ;
+        /*0030*/                   MUFU.EX2 R5, R5 ;
+        /*0040*/                   FFMA R6, R5, R4, R6 ;
+        /*0050*/              @!P0 BRA 0x20 ;
+        /*0060*/                   MUFU.EX2 R5, R5 ;
+        /*0070*/                   SHFL.BFLY PT, R5, R5, 0x10, 0x1f ;
+        /*0080*/                   MUFU.EX2 R7, R7 ;
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00a0*/               @P1 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_120rasterize_bwd_kernelILb0EEEvPKfS2_iiiib
+        /*0000*/                   MUFU.EX2 R5, R5 ;
+        /*0010*/                   BRA 0x0 ;
+"""
+
+
+def test_hot_loop_counts_the_innermost_loop_with_an_ex2():
+    """The SASS counter takes the smallest loop that issues MUFU.EX2 in
+    the named function: here 0x20-0x50 (4 instructions, 1 EX2), not the
+    outer 0x10-0xa0 loop nor the other instantiation's."""
+    got = rasterize.hot_loop(SASS, "rasterize_bwd_kernelILb1E")
+    assert got["instructions"] == 4 and got["ex2"] == 1
+    assert got["per_splat_pixel"] == 4.0
+    assert (got["ffma"], got["fadd"], got["bra"], got["shfl"]) == (1, 1, 1, 0)
+    with pytest.raises(ValueError):
+        rasterize.hot_loop(SASS, "rasterize_fwd_kernel")
