@@ -48,6 +48,27 @@ Phases (any failure propagates and the script exits nonzero):
              ``torch.profiler`` trace of three steps (device time by
              kernel, the device's busy share of the window).
 
+7. resume    partition 0 of the train phase's scene (2.88M slots, 2.22M
+             live, 1024x1024, 16x16 tiles, K=64, the auto tier ladder):
+             ``fit_partition`` for 20 steps saving every 10 (densify after
+             steps 10 and 20), uninterrupted; then 10 steps into a second
+             checkpoint directory and a resume to 20 from a fresh
+             ``TierSchedule``.  The restored state equals the saved one leaf
+             for leaf, the saved tier caps come back, the resumed run makes
+             no initial probe and one re-probe, both kernels launch on every
+             resumed step, and the resumed losses are within 1e-3 relative
+             of the uninterrupted run's.  Checkpoint bytes and the seconds
+             of each save and restore are printed.
+8. serve     the trained merged model of phase 5 written as the trainer's
+   from      merged checkpoint (scene frame on ``extra``), in float32 and
+   ckpt      with int8 cold attributes, and served by
+             ``repro_torch.launch.serve_gs.main`` (16 views, max_batch 8, two
+             passes): the repeat pass all hits, the float32 checkpoint's
+             images equal to a server built in memory on the same model,
+             the int8 checkpoint under 0.9x the float32 one on disk and its
+             images within 0.02 worst pixel / 0.005 mean of the float32
+             one's wherever both served the same splats.
+
 Kernel times are CUDA-event times over a run of back-to-back launches per
 event pair, divided by the count (``ms``); ``call_ms`` brackets one call,
 wrapper and enqueue included.  ``python3 chip_smoke.py --save-inputs DIR``
@@ -67,8 +88,10 @@ import contextlib
 import json
 import math
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -106,6 +129,10 @@ from repro_torch.core.tiling import tile_origins, untile_image  # noqa: E402
 from repro_torch.data.isosurface import point_cloud_for  # noqa: E402
 from repro_torch import as_numpy  # noqa: E402
 from repro_torch.kernels import ops, rasterize, ref  # noqa: E402
+from repro_torch.launch import serve_gs  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.runtime.checkpoint import quantize_cold  # noqa: E402
+from repro_torch.runtime.checkpoint import tree_flatten  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 #: cores, and HBM3 bandwidth
@@ -706,6 +733,8 @@ def recording_fit(records, device):
                 extent=kw["extent"],
                 gt0=gts[:1].clone(),
                 mask0=None if masks is None else masks[:1].clone(),
+                gts=gts,
+                masks=masks,
             )
         records.append(rec)
         return g1, opt, losses
@@ -730,20 +759,36 @@ def timed(times, label, fn, device):
 def run_recorded_pipeline(cfg, device):
     """``run_pipeline(cfg)`` with per-partition records and stage times ->
     (result, records, stage times, launches of the whole run: both counts
-    are set to 0 just before it and read just after)."""
-    records, times = [], []
+    are set to 0 just before it and read just after, and the scene frame
+    ``run_pipeline`` placed its rig in: center, radius, extent)."""
+    records, times, frame = [], [], {}
+    build = pipeline_mod.build_scene
+
+    def framed(*a, **kw):
+        points, colors, extent = out = build(*a, **kw)
+        frame.update(
+            center=[float(c) for c in 0.5 * (points.max(0) + points.min(0))],
+            radius=float(1.6 * extent / 2 + 1e-3),
+            extent=float(extent),
+        )
+        return out
+
     with contextlib.ExitStack() as stack:
         fit = recording_fit(records, device)
         stack.enter_context(patched(pipeline_mod, "fit_partition", fit))
-        for name in ("build_scene", "render_views", "partition_points"):
-            fn = timed(times, name, getattr(pipeline_mod, name), device)
+        for name, fn in (
+            ("build_scene", framed),
+            ("render_views", pipeline_mod.render_views),
+            ("partition_points", pipeline_mod.partition_points),
+        ):
+            fn = timed(times, name, fn, device)
             stack.enter_context(patched(pipeline_mod, name, fn))
         rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
         result = pipeline_mod.run_pipeline(cfg, device=device)
         launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
         times.append(("run_pipeline_total", time.perf_counter() - t0))
-    return result, records, times, launches
+    return result, records, times, launches, frame
 
 
 def train_phase(
@@ -760,7 +805,8 @@ def train_phase(
     tile=16,
 ):
     """``run_pipeline`` at the given size (the defaults: the full-size
-    kingsnake scene) -> (result, records, launches of the whole run),
+    kingsnake scene) -> (result, records, launches of the whole run, the
+    scene meta a trainer writes beside the merged checkpoint),
     checked: losses finite and falling in each partition, densify events
     that change the live count, the tier telemetry fed every step, and
     (on the card) bwd launches == fwd launches > 0 in training."""
@@ -781,7 +827,7 @@ def train_phase(
         f"densify_every={densify_every}, n_views={n_views}) on {device}; "
         f"cuts: {n_views} views (paper 448), {steps} steps"
     )
-    result, records, times, launches = run_recorded_pipeline(cfg, device)
+    result, records, times, launches, frame = run_recorded_pipeline(cfg, device)
     # fit_partition densifies from step 100 on (its default densify_from)
     n_events = sum(
         1 for i in range(100, steps) if densify_every and (i + 1) % densify_every == 0
@@ -820,7 +866,11 @@ def train_phase(
         f"(frac {result.boundary_frac:.4f}); run launches {launches}"
     )
     log("train stage times (s) " + json.dumps([(k, round(v, 4)) for k, v in times]))
-    return result, records, launches
+    # what launch/train.py --gs writes beside the merged model of the JAX
+    # package (src/repro/launch/train.py:243-248)
+    scene = {"dataset": dataset, "resolution": resolution, **frame}
+    scene.update(n_views=n_views, K=K, tile_h=tile, tile_w=tile)
+    return result, records, launches, scene
 
 
 #: card vs CPU on the small scene, 12 steps: the losses of each partition
@@ -844,7 +894,7 @@ def small_pipeline_check(device):
         n_views=4,
         train=GSTrainCfg(K=16, tile_h=8, tile_w=16),
     )
-    (res_d, rec_d, _, _), (res_c, rec_c, _, _) = (
+    (res_d, rec_d, *_), (res_c, rec_c, *_) = (
         run_recorded_pipeline(cfg, dev) for dev in (device, "cpu")
     )
     loss_err = max(
@@ -1082,6 +1132,207 @@ def train_profile_phase(rec, steps=3, top=12):
     return rows, share, wall_us / steps / 1e3
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints: resume, and serving from a checkpoint
+# ---------------------------------------------------------------------------
+
+
+def dir_bytes(path):
+    """Bytes of every file under ``path``."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+@contextlib.contextmanager
+def timed_checkpoint_io(device):
+    """Record every ``CheckpointManager.save`` (device-to-host copy +
+    ``np.save``) and ``restore`` (``np.load`` + host-to-device copy) made
+    inside, as (op, seconds, bytes of the step directory)."""
+    io = []
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed_save(self, step, tree, **kw):
+        sync(device)
+        t0 = time.perf_counter()
+        d = save(self, step, tree, **kw)
+        io.append(("save", time.perf_counter() - t0, dir_bytes(d)))
+        return d
+
+    def timed_restore(self, step, like, **kw):
+        t0 = time.perf_counter()
+        out = restore(self, step, like, **kw)
+        sync(device)
+        d = self._step_dir(step, kw.get("partition"))
+        io.append(("restore", time.perf_counter() - t0, dir_bytes(d)))
+        return out
+
+    with patched(CheckpointManager, "save", timed_save):
+        with patched(CheckpointManager, "restore", timed_restore):
+            yield io
+
+
+def trees_equal(a, b):
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.device == y.device and torch.equal(x, y) for x, y in zip(la, lb)
+    )
+
+
+def resume_phase(rec, device, tmp, *, steps=20, every=10):
+    """Partition 0 of the train phase, trained ``steps`` steps saving every
+    ``every`` (a densify event after each save's step), uninterrupted and
+    then interrupted at ``every`` and resumed -> the resumed run's kernel
+    launches (both counts set to 0 just before it and read just after)."""
+    g0, cams, cfg = rec["g0"], rec["cams"], rec["cfg"]
+    kw = dict(extent=rec["extent"], grid=rec["grid"], densify_every=every)
+    kw.update(densify_from=0, ckpt_every=every)
+    log(
+        f"resume: partition 0, capacity {g0.capacity}, {int(g0.active.sum())} "
+        f"live, {steps} steps saving every {every}, ladder "
+        f"{cfg.resolved_k_tiers()}"
+    )
+
+    def fit(root, n, sched):
+        gen = torch.Generator(device=device).manual_seed(7)
+        ckpt = CheckpointManager(str(root))
+        args = (g0, cams, rec["gts"], rec["masks"], cfg)
+        return train_mod.fit_partition(
+            *args, steps=n, schedule=sched, generator=gen, ckpt=ckpt, **kw
+        )
+
+    probes = []
+    real_probe = train_mod.occupancy_probe
+
+    def counted_probe(*a, **k):
+        probes.append(1)
+        return real_probe(*a, **k)
+
+    with timed_checkpoint_io(device) as io:
+        _, _, full = fit(tmp / "full", steps, cfg.tier_schedule())
+        sched_a = cfg.tier_schedule()
+        g_a, opt_a, _ = fit(tmp / "ab", every, sched_a)
+        saved, extra = CheckpointManager(str(tmp / "ab")).restore(
+            every, (g0, init_opt(g0)), device=device
+        )
+        equal = trees_equal(saved, (g_a, opt_a))
+        caps = TierSchedule.from_state(extra["schedule"]).tier_caps
+        del saved, g_a, opt_a
+        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        with patched(train_mod, "occupancy_probe", counted_probe):
+            _, _, tail = fit(tmp / "ab", steps, cfg.tier_schedule())
+        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    shutil.rmtree(tmp)
+    gap = np.abs(np.subtract(tail, full[every:])) / np.asarray(full[every:])
+    for op, dt, n in io:
+        log(f"checkpoint {op}: {n} bytes in {dt:.3f} s ({n / dt / 1e9:.3f} GB/s)")
+    log(
+        f"resume: restored state equal {equal}, caps {caps} (saved "
+        f"{sched_a.tier_caps}), probes {len(probes)}, launches {launches}, "
+        f"tail losses max rel gap {gap.max():.3e} (uninterrupted "
+        f"{[round(x, 6) for x in full[every:]]}, resumed "
+        f"{[round(x, 6) for x in tail]})"
+    )
+    if not equal or caps != sched_a.tier_caps:
+        raise AssertionError("the restored checkpoint differs from the saved state")
+    n_events = sum(1 for i in range(every, steps) if (i + 1) % every == 0)
+    if len(probes) != n_events or len(tail) != steps - every:
+        raise AssertionError(f"resumed run: {len(probes)} probes, {len(tail)} steps")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not launches["bwd"] == launches["fwd"] >= steps - every:
+        raise AssertionError(f"resumed run launches {launches}")
+    if not gap.max() <= SMALL_LOSS_RTOL:
+        raise AssertionError(f"resumed losses {gap.max()} from the uninterrupted run")
+    return launches
+
+
+def serve_ckpt_phase(merged, scene, device, tmp, *, views=16, max_batch=8):
+    """The merged model written as the trainer's merged checkpoint (float32,
+    and int8 cold attributes) and served from each by ``serve_gs.main``; the
+    float32 checkpoint's images against a server built in memory on the same
+    model -> the forward launches of the two serving runs (the count set to
+    0 just before each and read just after)."""
+    served, calls, launches = {}, [], 0
+    real_serve = GSRenderServer.serve
+
+    def recording_serve(self, rig):
+        out = real_serve(self, rig)
+        calls.append((self, rig, out))
+        return out
+
+    quantized, meta = quantize_cold(merged)
+    with timed_checkpoint_io(device) as io:
+        for name, tree, extra in (
+            ("f32", merged, {"scene": scene}),
+            ("int8", quantized, {"scene": scene, "quant": meta}),
+        ):
+            root = tmp / name
+            mgr = CheckpointManager(str(root / "merged"), keep=2)
+            mgr.save(120, tree, extra=extra)  # the train phase's step count
+            argv = ["--ckpt-dir", str(root), "--views", str(views), "--max-batch"]
+            argv += [str(max_batch), "--passes", "2", "--telemetry-json"]
+            argv += [str(tmp / f"{name}.json"), "--device", device]
+            rasterize.LAUNCHES = 0
+            with patched(GSRenderServer, "serve", recording_serve):
+                rc = serve_gs.main(argv)
+            launches += rasterize.LAUNCHES
+            if rc != 0:
+                raise AssertionError(f"serve_gs exited {rc}")
+            served[name] = calls[0]  # the server, its rig, the cold pass
+            calls.clear()
+    del quantized
+    stats = {}
+    for name in ("f32", "int8"):
+        with open(tmp / f"{name}.json") as f:
+            passes = json.load(f)["passes"]
+        stats[name] = {
+            "bytes": dir_bytes(tmp / name / "merged"),
+            "req_per_s": [p["req_per_s"] for p in passes],
+            "hits": [p["hits"] for p in passes],
+        }
+        if passes[1]["hits"] != views or passes[0]["rungs"] != [0, 1]:
+            raise AssertionError(f"{name} checkpoint: passes {passes}")
+    for op, dt, n in io:
+        log(f"merged checkpoint {op}: {n} bytes in {dt:.3f} s")
+    log(f"served from checkpoints: {json.dumps(stats)}")
+
+    # the float32 checkpoint serves what the in-memory model serves
+    server, rig, cold = served["f32"]
+    center, radius = np.asarray(scene["center"]), float(scene["radius"])
+    memory = GSRenderServer(
+        merged, server.grid, server.cfg, center=center, radius=radius
+    )
+    same = all(
+        np.array_equal(a.rgb, b.rgb) and np.array_equal(a.coverage, b.coverage)
+        for a, b in zip(cold, memory.serve(rig))
+    )
+    del memory
+    # the int8 checkpoint within the reference's quantization bound, on every
+    # rung that serves the same splats as the float32 one (a rung is chosen
+    # by an impact rank that the quantized opacity may reorder)
+    qserver, _, qcold = served["int8"]
+    errs = {}
+    for r, (a, b) in enumerate(zip(server.ladder, qserver.ladder)):
+        imgs = [(x.rgb, y.rgb) for x, y in zip(cold, qcold) if x.rung == r]
+        err = np.abs(np.stack([x for x, _ in imgs]) - np.stack([y for _, y in imgs]))
+        errs[r] = {
+            "same_splats": bool(torch.equal(a.means, b.means)),
+            "worst": float(err.max()),
+            "mean": float(err.mean()),
+        }
+    log(f"int8 vs float32 checkpoint images by rung: {json.dumps(errs)}")
+    ratio = stats["int8"]["bytes"] / stats["f32"]["bytes"]
+    log(f"checkpoint bytes int8 / float32 {ratio:.4f}; in-memory images equal {same}")
+    if not same:
+        raise AssertionError("the checkpoint's server differs from the in-memory one")
+    if not ratio < 0.9:
+        raise AssertionError(f"int8 checkpoint at {ratio} of the float32 one")
+    if not errs[0]["same_splats"]:
+        raise AssertionError("the full-model rung differs between the checkpoints")
+    for r, e in errs.items():
+        if e["same_splats"] and not (e["worst"] <= 0.02 and e["mean"] <= 0.005):
+            raise AssertionError(f"int8 images on rung {r}: {e}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument(
@@ -1156,7 +1407,7 @@ def main(argv=None):
     # 5. train at paper scale; the counts cover the whole run_pipeline
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, records, train_launches = train_phase(device)
+    result, records, train_launches, scene = train_phase(device)
     log(
         f"train: phase {time.perf_counter() - t0:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
@@ -1168,20 +1419,43 @@ def main(argv=None):
     bwd_stats = tiers["bwd"][max(tiers["bwd"])]  # the top tier
     train_breakdown_phase(records[0])
     train_profile_phase(records[0])
+
+    # 7-8. checkpoints: resume a partition; serve the trained merged model
+    # from its checkpoint (counts zeroed before each path inside the phase)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        resume_launches = resume_phase(records[0], device, tmp / "resume")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"resume: peak device memory {peak:.2f} GiB")
+        del records
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ckpt_serve_launches = serve_ckpt_phase(result.merged, scene, device, tmp / "gs")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"serve from checkpoint: peak device memory {peak:.2f} GiB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(smi, flush=True)
+
     fwd_errs = [sweep_err, stats["max_abs_err"]]
     fwd_errs += [t["max_abs_err"] for t in tiers["fwd"].values()]
     bwd_errs = [bwd_sweep_err] + [t["max_abs_err"] for t in tiers["bwd"].values()]
     log(
         f"launches on the main paths: serve fwd {serve_launches}; train fwd "
-        f"{train_launches['fwd']} bwd {train_launches['bwd']}"
+        f"{train_launches['fwd']} bwd {train_launches['bwd']}; resume fwd "
+        f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; serve from "
+        f"checkpoint fwd {ckpt_serve_launches}"
     )
+    fwd_launches = serve_launches + train_launches["fwd"]
+    fwd_launches += resume_launches["fwd"] + ckpt_serve_launches
     kernels = [
         {
             "name": "rasterize_fwd",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rasterize_fwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:96",
-            "launches": serve_launches + train_launches["fwd"],
+            "launches": fwd_launches,
             "max_abs_err": max(fwd_errs),
             "ms": stats["ms"],
             "plain_ms": stats["plain_ms"],
@@ -1194,7 +1468,7 @@ def main(argv=None):
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
-            "launches": train_launches["bwd"],
+            "launches": train_launches["bwd"] + resume_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

@@ -1,8 +1,9 @@
 """GS render serving: a batched request-queue server over a merged model.
 
-Port of ``repro.core.serving`` (all but ``from_checkpoint``, which waits
-for the checkpoint port).  One server holds ONE merged gaussian set on one
-device and turns a stream of camera requests into batched renders:
+Port of ``repro.core.serving``.  One server holds ONE merged gaussian set
+on one device (built in memory, or restored from the merged checkpoint a
+trainer wrote with ``from_checkpoint``) and turns a stream of camera
+requests into batched renders:
 
   submit(cam) -> bounded queue -> flush() coalesces pending requests into
   view-batched dispatches (one CUDA compositor launch each) ->
@@ -37,6 +38,7 @@ results, ``RenderResult`` fields and telemetry.
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -52,6 +54,8 @@ from repro_torch.core.tiling import (DEFAULT_ASSIGN_IMPL, POSE_BINS,
                                      TierSchedule, TileGrid,
                                      grow_tile_budget, quantize_pose,
                                      slice_table)
+from repro_torch.runtime.checkpoint import (CheckpointManager,
+                                            dequantize_cold, unshaped_like)
 
 
 class QueueFullError(RuntimeError):
@@ -266,6 +270,50 @@ class GSRenderServer:
             "evictions": 0, "cache_overflow": 0, "shed": 0, "rejected": 0,
             "tiles": 0, "assign": 0,
         }
+
+    # -- checkpoint loading -------------------------------------------------
+
+    #: subdirectory of a trainer's checkpoint tree holding the merged-model
+    #: checkpoint
+    MERGED_SUBDIR = "merged"
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str,
+                        cfg: Optional[ServeCfg] = None, *, device="cuda",
+                        **overrides):
+        """Load the merged checkpoint under ``<ckpt_dir>/merged`` onto
+        ``device`` and build a server around it -> ``(server, extra)``.
+        The template is shape-free (``checkpoint.unshaped_like``): the
+        merged capacity is a training outcome.  int8 cold attributes are
+        dequantized with the scales on ``extra["quant"]``.
+        ``extra["scene"]`` (center/radius/resolution/tile shape) anchors
+        the grid and the LOD ladder; cfg.K defaults to the training K.
+        ``overrides`` are ServeCfg field replacements applied over the
+        meta-defaulted cfg (mutually exclusive with ``cfg``)."""
+        if cfg is not None and overrides:
+            raise ValueError("pass cfg= or field overrides, not both")
+        mgr = CheckpointManager(os.path.join(ckpt_dir, cls.MERGED_SUBDIR),
+                                keep=2)
+        g, extra, step = mgr.restore_latest(unshaped_like(Gaussians),
+                                            device=device)
+        if step is None:
+            raise FileNotFoundError(
+                f"no merged checkpoint under {ckpt_dir}/{cls.MERGED_SUBDIR} "
+                "(a trainer writes it after the merge)")
+        g = dequantize_cold(g, extra.get("quant"))
+        meta = extra.get("scene", {})
+        res = int(meta.get("resolution", 64))
+        grid = TileGrid(res, res, int(meta.get("tile_h", 8)),
+                        int(meta.get("tile_w", 16)))
+        if cfg is None:
+            cfg = dataclasses.replace(
+                ServeCfg(K=int(meta.get("K", ServeCfg.K))), **overrides)
+        center = meta.get("center")
+        radius = meta.get("radius")
+        server = cls(g, grid, cfg,
+                     center=None if center is None else np.asarray(center),
+                     radius=None if radius is None else float(radius))
+        return server, extra
 
     # -- request intake -----------------------------------------------------
 

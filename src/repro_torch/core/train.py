@@ -13,10 +13,9 @@ differentiates the loss with ``torch.autograd.grad`` -- through the CUDA
 ``rasterize_bwd`` kernel on the card -- and returns NEW gaussians and
 optimizer state, leaving its inputs untouched.
 
-Not ported yet: checkpoint/resume in ``fit_partition`` (``ckpt``,
-``ckpt_every``, ``partition``; ROADMAP queue 1 item 13) and the knobs of
-the parts that are missing (``coarse``, the distributed step's options,
-gradient compression), which raise naming their ROADMAP item.
+Not ported yet: the knobs of the parts that are missing (``coarse``, the
+distributed step's options, gradient compression), which raise naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -243,6 +242,30 @@ def loss_and_grads(cfg: GSTrainCfg, grid: TileGrid, g: Gaussians,
 _FROM_CFG = object()
 
 
+def _check_resume_policy(extra: dict, cfg: GSTrainCfg):
+    """Refuse to resume across a dtype-policy / grad-compress boundary.
+
+    A checkpoint trains forward under the SAME numerics it was written
+    with: switching dtype_policy mid-run would fork the loss curve with no
+    record, and switching grad_compress changes the step state layout.
+    Checkpoints that predate the knobs carry no record and are treated as
+    the defaults ("f32"/"none")."""
+    saved_pol = extra.get("dtype_policy", "f32")
+    if saved_pol != cfg.dtype_policy:
+        raise ValueError(
+            f"checkpoint was written under dtype_policy={saved_pol!r} but "
+            f"this run uses {cfg.dtype_policy!r}; resume must keep the "
+            f"policy — rerun with --dtype-policy {saved_pol} or point "
+            "--ckpt-dir at a fresh directory")
+    saved_gc = extra.get("grad_compress", "none")
+    if saved_gc != cfg.grad_compress:
+        raise ValueError(
+            f"checkpoint was written under grad_compress={saved_gc!r} but "
+            f"this run uses {cfg.grad_compress!r}; resume must keep the "
+            "mode (the error-feedback state rides the checkpoint) — rerun "
+            f"with --grad-compress {saved_gc} or use a fresh --ckpt-dir")
+
+
 def make_train_step(cfg: GSTrainCfg, grid: TileGrid, extent: float, *,
                     k_tiers=_FROM_CFG, tier_caps: Optional[tuple] = None,
                     return_overflow: bool = False,
@@ -412,6 +435,8 @@ def fit_partition(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                   log_every: int = 0, grid: Optional[TileGrid] = None,
                   view_batch: Optional[int] = None,
                   schedule: Optional[TierSchedule] = None,
+                  ckpt=None, ckpt_every: int = 0,
+                  partition: Optional[int] = None,
                   densify_cap: Optional[int] = None,
                   densify_noise: Optional[Iterable] = None):
     """Train one partition for ``steps`` steps cycling over its camera set.
@@ -431,8 +456,18 @@ def fit_partition(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
 
     ``generator`` (a ``torch.Generator`` on the gaussians' device, default
     seeded 0) draws the split noise; ``densify_noise`` instead supplies it,
-    one (max_new', 3) array per densify event in order (a parity test
-    passes the reference's draws)."""
+    one (max_new', 3) array per densify event of the WHOLE run, in order (a
+    parity test passes the reference's draws).
+
+    Checkpoint/resume: with ``ckpt`` (a ``runtime.CheckpointManager``) the
+    newest complete checkpoint is restored -- (g, opt) plus the
+    TierSchedule state stored alongside them, so the resumed run keeps its
+    probed caps and makes no initial probe -- the split noise of the
+    densify events before that step is skipped (one draw of the generator
+    per event, or one entry of ``densify_noise``), and training continues
+    from that step; ``ckpt_every`` saves periodically (under
+    ``partition_<k>/`` when ``partition`` is given).  ``losses`` covers
+    only the steps this call ran."""
     dev = g.means.device
     if grid is None:
         grid = TileGrid(cams.width, cams.height, cfg.tile_h, cfg.tile_w)
@@ -445,6 +480,29 @@ def fit_partition(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     opt = init_opt(g)
     n_views = gts.shape[0]
     vb = max(1, min(view_batch or cfg.view_batch, n_views))
+
+    def densify_at(i):
+        return densify_every and i >= densify_from \
+            and (i + 1) % densify_every == 0
+
+    start = 0
+    if ckpt is not None:
+        (g, opt), extra, latest = ckpt.restore_latest(
+            (g, opt), partition=partition, device=dev)
+        if latest is not None:
+            _check_resume_policy(extra, cfg)
+            if sched is not None and extra.get("schedule"):
+                sched.load_state(extra["schedule"])
+            start = latest
+    # skip the split noise of the densify events before ``start``, so a
+    # resumed run splits with the same noise as an uninterrupted one
+    n_split = min(cfg.max_new, g.capacity)
+    for i in range(start):
+        if densify_at(i):
+            if noise is not None:
+                next(noise)
+            else:
+                torch.randn((n_split, 3), generator=generator, device=dev)
     probe_vi = torch.arange(min(n_views, max(vb, 2)), device=dev) % n_views
     assign = {"impl": cfg.assign_impl, "budget": cfg.assign_budget}
 
@@ -486,7 +544,7 @@ def fit_partition(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     if sched is not None and sched.tier_caps is None:
         reprobe(g)
     losses = []
-    for i in range(steps):
+    for i in range(start, steps):
         vi = (i * vb + torch.arange(vb, device=dev)) % n_views
         mask = None if masks is None else masks[vi]
         g, opt, loss, overflow = get_step()(g, opt, select(cams, vi),
@@ -497,14 +555,19 @@ def fit_partition(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
             # caps grow for the next steps
             sched.note_overflow(overflow["tiles"], grid.n_tiles)
         note_assign_overflow(overflow["assign"])
-        if densify_every and i >= densify_from \
-                and (i + 1) % densify_every == 0:
+        if densify_at(i):
             eps = None if noise is None else next(noise)
             g, opt = densify_and_prune(g, opt, generator, dcfg, extent,
                                        eps=eps)
             probe_assign(g)
             if sched is not None:
                 reprobe(g)
+        if ckpt is not None and ckpt_every and (i + 1) % ckpt_every == 0:
+            ckpt.save(i + 1, (g, opt), partition=partition,
+                      extra={"schedule":
+                             sched.state_dict() if sched else None,
+                             "dtype_policy": cfg.dtype_policy,
+                             "grad_compress": cfg.grad_compress})
         if log_every and (i + 1) % log_every == 0:
             print(f"  step {i+1:5d}  loss {losses[-1]:.4f} "
                   f"active {int(g.active.sum())}")
