@@ -59,15 +59,36 @@ Phases (any failure propagates and the script exits nonzero):
              resumed step, and the resumed losses are within 1e-3 relative
              of the uninterrupted run's.  Checkpoint bytes and the seconds
              of each save and restore are printed.
-8. serve     the trained merged model of phase 5 written as the trainer's
-   from      merged checkpoint (scene frame on ``extra``), in float32 and
-   ckpt      with int8 cold attributes, and served by
-             ``repro_torch.launch.serve_gs.main`` (16 views, max_batch 8, two
-             passes): the repeat pass all hits, the float32 checkpoint's
-             images equal to a server built in memory on the same model,
-             the int8 checkpoint under 0.9x the float32 one on disk and its
-             images within 0.02 worst pixel / 0.005 mean of the float32
-             one's wherever both served the same splats.
+8. train     the training CLI as a user runs it, in-process on a world-1
+   CLI       NCCL group: ``launch.train.main(["--gs", "--dataset",
+             "kingsnake", "--full", "--parts", "2", "--resolution", "1024",
+             "--views", "16", "--steps", "120", "--densify-every", "10",
+             "--densify-from", "100", "--ckpt-every", "60", ...])``: the
+             paper's distributed trainer, both partitions (2 x 2.88M slots)
+             in one ``fit_partitions`` step, 8x16 tiles, K=64, the auto tier
+             ladder, one view a step; densify after steps 110 and 120.  Cut:
+             16 views of 448 and 120 steps, as phase 5.  bwd launches == fwd
+             launches > 0 inside ``fit_partitions``, each partition's share
+             of the step loss falls (mean of its first 10 steps against its
+             last 10), the last step's overflow counters 0,
+             merged PSNR/SSIM finite; both kernels held against their
+             plain versions (1e-5 forward, 5e-4 backward) and timed on the
+             last step's own 8x16 tier tables; the step time beside
+             ``fit_partition``'s one-partition step on the same scene over
+             the same 120 steps (medians over all steps and over steps
+             20-99, five cycles of the 16 views).  Then the CLI again with
+             ``--ckpt-quantize int8`` on a copy of its last checkpoint: no
+             step to run, it merges and writes int8.
+9. serve     the two merged checkpoints the CLI wrote (float32, and int8
+   from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
+   ckpt      (16 views, max_batch 8, two passes): the repeat pass all hits,
+             the float32 checkpoint's images equal to a server built in
+             memory on the CLI's final state merged here, the int8
+             checkpoint under 0.9x the float32 one on disk and its images
+             within 0.02 worst pixel / 0.005 mean of the float32 one's
+             wherever both served the same splats; the forward kernel held
+             against its plain version (1e-5) and timed on the float32
+             run's first cold dispatch (8x16 tiles).
 
 Kernel times are CUDA-event times over a run of back-to-back launches per
 event pair, divided by the count (``ms``); ``call_ms`` brackets one call,
@@ -85,8 +106,10 @@ loss for some steps, so the loss check would see the jump).
 
 import argparse
 import contextlib
+import io as io_mod
 import json
 import math
+import re
 import statistics
 import shutil
 import subprocess
@@ -129,9 +152,11 @@ from repro_torch.core.tiling import tile_origins, untile_image  # noqa: E402
 from repro_torch.data.isosurface import point_cloud_for  # noqa: E402
 from repro_torch import as_numpy  # noqa: E402
 from repro_torch.kernels import ops, rasterize, ref  # noqa: E402
+from repro_torch.core import distributed as dist_mod  # noqa: E402
+from repro_torch.core.merge import merge_partitions  # noqa: E402
 from repro_torch.launch import serve_gs  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.runtime.checkpoint import quantize_cold  # noqa: E402
 from repro_torch.runtime.checkpoint import tree_flatten  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
@@ -759,25 +784,13 @@ def timed(times, label, fn, device):
 def run_recorded_pipeline(cfg, device):
     """``run_pipeline(cfg)`` with per-partition records and stage times ->
     (result, records, stage times, launches of the whole run: both counts
-    are set to 0 just before it and read just after, and the scene frame
-    ``run_pipeline`` placed its rig in: center, radius, extent)."""
-    records, times, frame = [], [], {}
-    build = pipeline_mod.build_scene
-
-    def framed(*a, **kw):
-        points, colors, extent = out = build(*a, **kw)
-        frame.update(
-            center=[float(c) for c in 0.5 * (points.max(0) + points.min(0))],
-            radius=float(1.6 * extent / 2 + 1e-3),
-            extent=float(extent),
-        )
-        return out
-
+    are set to 0 just before it and read just after)."""
+    records, times = [], []
     with contextlib.ExitStack() as stack:
         fit = recording_fit(records, device)
         stack.enter_context(patched(pipeline_mod, "fit_partition", fit))
         for name, fn in (
-            ("build_scene", framed),
+            ("build_scene", pipeline_mod.build_scene),
             ("render_views", pipeline_mod.render_views),
             ("partition_points", pipeline_mod.partition_points),
         ):
@@ -788,7 +801,7 @@ def run_recorded_pipeline(cfg, device):
         result = pipeline_mod.run_pipeline(cfg, device=device)
         launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
         times.append(("run_pipeline_total", time.perf_counter() - t0))
-    return result, records, times, launches, frame
+    return result, records, times, launches
 
 
 def train_phase(
@@ -805,8 +818,7 @@ def train_phase(
     tile=16,
 ):
     """``run_pipeline`` at the given size (the defaults: the full-size
-    kingsnake scene) -> (result, records, launches of the whole run, the
-    scene meta a trainer writes beside the merged checkpoint),
+    kingsnake scene) -> (result, records, launches of the whole run),
     checked: losses finite and falling in each partition, densify events
     that change the live count, the tier telemetry fed every step, and
     (on the card) bwd launches == fwd launches > 0 in training."""
@@ -827,7 +839,7 @@ def train_phase(
         f"densify_every={densify_every}, n_views={n_views}) on {device}; "
         f"cuts: {n_views} views (paper 448), {steps} steps"
     )
-    result, records, times, launches, frame = run_recorded_pipeline(cfg, device)
+    result, records, times, launches = run_recorded_pipeline(cfg, device)
     # fit_partition densifies from step 100 on (its default densify_from)
     n_events = sum(
         1 for i in range(100, steps) if densify_every and (i + 1) % densify_every == 0
@@ -866,11 +878,7 @@ def train_phase(
         f"(frac {result.boundary_frac:.4f}); run launches {launches}"
     )
     log("train stage times (s) " + json.dumps([(k, round(v, 4)) for k, v in times]))
-    # what launch/train.py --gs writes beside the merged model of the JAX
-    # package (src/repro/launch/train.py:243-248)
-    scene = {"dataset": dataset, "resolution": resolution, **frame}
-    scene.update(n_views=n_views, K=K, tile_h=tile, tile_w=tile)
-    return result, records, launches, scene
+    return result, records, launches
 
 
 #: card vs CPU on the small scene, 12 steps: the losses of each partition
@@ -878,6 +886,10 @@ def train_phase(
 #: gather transpose's atomics, the kernels' reduction order, cuDNN's
 #: convolution and the projection's matmul rounding, fed through Adam.
 SMALL_LOSS_RTOL = 1e-3
+#: the step window [from, to) whose median step times compare the batched
+#: and the one-partition trainer: past the first steps' allocator growth,
+#: before the first densify event
+STEADY = (20, 100)
 SMALL_PSNR_ATOL = 0.01
 SMALL_SSIM_ATOL = 1e-4
 
@@ -959,6 +971,15 @@ def train_timing_phase(rec, issue, reps=15, plain_reps=5, save_dir=None):
         planes.append((k, tf, og, out, gout))
     if save_dir is not None:
         torch.save({"tiers": planes, "tile": (th, tw)}, Path(save_dir) / "train.pt")
+    return time_tiers(planes, th, tw, issue, "train", reps, plain_reps)
+
+
+def time_tiers(planes, th, tw, issue, label, reps=15, plain_reps=5):
+    """Both kernels vs their plain versions on one step's tier tables
+    (``planes``: [(K, feats, origins, out, gout)] at tiles th x tw), each
+    tier held at TOL / BWD_TOL and timed with its own bound and issue-rate
+    ceiling (the SM clock sampled under the top tier) -> {"fwd": {K:
+    stats}, "bwd": {K: stats}}."""
     _, tf, og, out, gout = planes[-1]
     top = dict(tile_h=th, tile_w=tw)
     clocks = {
@@ -966,7 +987,7 @@ def train_timing_phase(rec, issue, reps=15, plain_reps=5, save_dir=None):
         "bwd": sm_clock_mhz(lambda: rasterize.rasterize_bwd(tf, og, out, gout, **top)),
     }
     clocks = {name: median for name, (median, _) in clocks.items()}
-    log(f"SM clock (MHz) under the top tier: {clocks}")
+    log(f"{label}: SM clock (MHz) under the top tier: {clocks}")
     result = {"fwd": {}, "bwd": {}}
     for k, tf, og, out, gout in planes:
         T = tf.shape[0]
@@ -987,12 +1008,13 @@ def train_timing_phase(rec, issue, reps=15, plain_reps=5, save_dir=None):
 
         err = (kernel_fwd() - plain_fwd()).abs().max().item()
         if not err <= TOL:
-            raise AssertionError(f"tier K={k}: forward err {err}")
+            raise AssertionError(f"{label} tier K={k}: forward err {err}")
         got, want = kernel_bwd(), plain_bwd()
         bwd_err = (got - want).abs().max().item()
         gate = bwd_gate(got, want, BWD_TOL)
         if not gate <= 1.0:
-            raise AssertionError(f"tier K={k}: backward disagrees, gate {gate}")
+            raise AssertionError(
+                f"{label} tier K={k}: backward disagrees, gate {gate}")
         fwd_bytes = 4 * (tf.numel() + og.numel() + out.numel())
         bwd_bytes = 4 * (2 * tf.numel() + og.numel() + out.numel() + gout.numel())
         for name, kern, plain, ops_per, n_bytes, e in (
@@ -1012,7 +1034,7 @@ def train_timing_phase(rec, issue, reps=15, plain_reps=5, save_dir=None):
             if name == "bwd":
                 stats["gate"] = gate
             result[name][k] = stats
-            log(f"train {name} tier K={k}: {json.dumps(stats)}")
+            log(f"{label} {name} tier K={k}: {json.dumps(stats)}")
     return result
 
 
@@ -1244,13 +1266,36 @@ def resume_phase(rec, device, tmp, *, steps=20, every=10):
     return launches
 
 
-def serve_ckpt_phase(merged, scene, device, tmp, *, views=16, max_batch=8):
-    """The merged model written as the trainer's merged checkpoint (float32,
-    and int8 cold attributes) and served from each by ``serve_gs.main``; the
-    float32 checkpoint's images against a server built in memory on the same
-    model -> the forward launches of the two serving runs (the count set to
-    0 just before each and read just after)."""
-    served, calls, launches = {}, [], 0
+@contextlib.contextmanager
+def kernel_calls(calls):
+    """Both kernel wrappers with each call's tensors appended to ``calls``
+    as ("fwd", (feats, origins), tile) or ("bwd", (feats, origins, out,
+    gout), tile); the calls themselves run and count as before."""
+    real_fwd, real_bwd = rasterize.rasterize_fwd, rasterize.rasterize_bwd
+
+    def fwd(feats, origins, *, tile_h, tile_w):
+        calls.append(("fwd", (feats, origins), (tile_h, tile_w)))
+        return real_fwd(feats, origins, tile_h=tile_h, tile_w=tile_w)
+
+    def bwd(feats, origins, out, gout, *, tile_h, tile_w):
+        calls.append(("bwd", (feats, origins, out, gout), (tile_h, tile_w)))
+        return real_bwd(feats, origins, out, gout, tile_h=tile_h, tile_w=tile_w)
+
+    with patched(rasterize, "rasterize_fwd", fwd):
+        with patched(rasterize, "rasterize_bwd", bwd):
+            yield calls
+
+
+def serve_ckpt_phase(roots, merged, device, tmp, *, views=16, max_batch=8):
+    """The merged checkpoints the training CLI wrote (``roots``: float32 and
+    int8 cold attributes, each a ``--ckpt-dir`` holding ``merged/``) served
+    by ``serve_gs.main``; the float32 checkpoint's images against a server
+    built in memory on ``merged`` (the CLI's final state merged here) -> the
+    forward launches of the two serving runs (the count set to 0 just
+    before each and read just after, and the forward kernel's error against
+    its plain version and both their times on the float32 run's first
+    (cold) dispatch, None where the kernel did not serve it)."""
+    served, calls, launches, dispatches, cold = {}, [], 0, [], None
     real_serve = GSRenderServer.serve
 
     def recording_serve(self, rig):
@@ -1258,33 +1303,31 @@ def serve_ckpt_phase(merged, scene, device, tmp, *, views=16, max_batch=8):
         calls.append((self, rig, out))
         return out
 
-    quantized, meta = quantize_cold(merged)
     with timed_checkpoint_io(device) as io:
-        for name, tree, extra in (
-            ("f32", merged, {"scene": scene}),
-            ("int8", quantized, {"scene": scene, "quant": meta}),
-        ):
-            root = tmp / name
-            mgr = CheckpointManager(str(root / "merged"), keep=2)
-            mgr.save(120, tree, extra=extra)  # the train phase's step count
-            argv = ["--ckpt-dir", str(root), "--views", str(views), "--max-batch"]
-            argv += [str(max_batch), "--passes", "2", "--telemetry-json"]
-            argv += [str(tmp / f"{name}.json"), "--device", device]
+        for name in ("f32", "int8"):
+            argv = ["--ckpt-dir", str(roots[name]), "--views", str(views)]
+            argv += ["--max-batch", str(max_batch), "--passes", "2"]
+            argv += ["--telemetry-json", str(tmp / f"{name}.json")]
+            argv += ["--device", device]
             rasterize.LAUNCHES = 0
             with patched(GSRenderServer, "serve", recording_serve):
-                rc = serve_gs.main(argv)
+                with kernel_calls(dispatches):
+                    rc = serve_gs.main(argv)
             launches += rasterize.LAUNCHES
+            launched = [d[1:] for d in dispatches if d[1][0].shape[0]]
+            if name == "f32" and launched:
+                cold = launched[0]  # (feats, origins), tile
+            dispatches.clear()
             if rc != 0:
                 raise AssertionError(f"serve_gs exited {rc}")
             served[name] = calls[0]  # the server, its rig, the cold pass
             calls.clear()
-    del quantized
     stats = {}
     for name in ("f32", "int8"):
         with open(tmp / f"{name}.json") as f:
             passes = json.load(f)["passes"]
         stats[name] = {
-            "bytes": dir_bytes(tmp / name / "merged"),
+            "bytes": dir_bytes(Path(roots[name]) / "merged"),
             "req_per_s": [p["req_per_s"] for p in passes],
             "hits": [p["hits"] for p in passes],
         }
@@ -1292,10 +1335,35 @@ def serve_ckpt_phase(merged, scene, device, tmp, *, views=16, max_batch=8):
             raise AssertionError(f"{name} checkpoint: passes {passes}")
     for op, dt, n in io:
         log(f"merged checkpoint {op}: {n} bytes in {dt:.3f} s")
+    cold_stats = None
+    if cold is not None:  # on the card: the kernel served it
+        (feats, origins), (th, tw) = cold
+        T, K = feats.shape[:2]
+
+        def kernel():
+            return rasterize.rasterize_fwd(feats, origins, tile_h=th, tile_w=tw)
+
+        def plain_version():
+            return ref.rasterize_tiles_ref(feats, origins, tile_h=th, tile_w=tw)
+
+        err = (kernel() - plain_version()).abs().max().item()
+        label = f"first cold dispatch (f32 ckpt), {T} tiles {th}x{tw} K={K}"
+        log(f"{label}: forward max abs err {err:.3e}")
+        if not err <= TOL:
+            raise AssertionError(f"{label}: forward err {err} > {TOL}")
+        cold_stats = time_against_plain(kernel, plain_version)
+        n_bytes = 4 * (feats.numel() + origins.numel() + T * 4 * th * tw)
+        cold_stats.update(bound(T * K * th * tw, OPS_PER_SPLAT_PIXEL, n_bytes))
+        cold_stats.update(tiles=T, K=K, max_abs_err=err)
+        log(f"{label} fwd: {json.dumps(cold_stats)}")
+        del feats, origins
+    del cold
     log(f"served from checkpoints: {json.dumps(stats)}")
 
     # the float32 checkpoint serves what the in-memory model serves
     server, rig, cold = served["f32"]
+    mgr = CheckpointManager(str(Path(roots["f32"]) / "merged"))
+    scene = mgr.manifest_extra(mgr.latest_step())["scene"]
     center, radius = np.asarray(scene["center"]), float(scene["radius"])
     memory = GSRenderServer(
         merged, server.grid, server.cfg, center=center, radius=radius
@@ -1330,7 +1398,286 @@ def serve_ckpt_phase(merged, scene, device, tmp, *, views=16, max_batch=8):
     for r, e in errs.items():
         if e["same_splats"] and not (e["worst"] <= 0.02 and e["mean"] <= 0.005):
             raise AssertionError(f"int8 images on rung {r}: {e}")
-    return launches
+    return launches, cold_stats
+
+
+# ---------------------------------------------------------------------------
+# The training CLI: the paper's distributed trainer, as a user runs it
+# ---------------------------------------------------------------------------
+
+
+def partition_losses(fwd, g, batch, T, lam, win):
+    """Each partition's share of one step's loss: the step's own forward
+    (``fwd`` returns its tiles) on the step's input state and batch, the
+    masked L1 + per-tile D-SSIM taken over each partition's tiles alone and
+    averaged over the batch's views -> [loss of partition p]."""
+    with torch.no_grad():
+        _, tiles = fwd(g, batch["cam"], batch["gt_tiles"], batch["mask_tiles"])
+    out = np.zeros(g.means.shape[0])
+    for v in range(tiles.shape[0]):
+        for p in range(out.shape[0]):
+            sl = slice(p * T, (p + 1) * T)
+            l1n, l1d, sn, sd = dist_mod._loss_partials(
+                tiles[v, sl, :3], batch["gt_tiles"][v, sl],
+                batch["mask_tiles"][v, sl], win_size=win,
+            ).tolist()
+            out[p] += (1 - lam) * l1n / max(l1d, 1.0) + lam * (
+                1.0 - sn / max(sd, 1.0)
+            ) / 2.0
+    return list(out / tiles.shape[0])
+
+
+@contextlib.contextmanager
+def observed_fit_partitions(device, rec):
+    """``distributed.fit_partitions`` as ``launch/train.py`` calls it, with
+    its inputs and result, each step's wall time, overflow counters and
+    per-partition loss, both kernels' launches inside it, and the tensors
+    of every kernel call of the latest step (``rec["step_calls"]``)
+    recorded in ``rec``.  The per-partition losses come from a second
+    forward of each step (the step's own schedule and assignment, outside
+    the timed call) with the launch counts put back afterwards: those
+    launches are not the CLI's."""
+    real_fit = dist_mod.fit_partitions
+    real_make = dist_mod.make_gs_train_step
+    rec.update(step_ms=[], overflow=[], part_losses=[])
+
+    def make(mesh, cfg, grid, extent, **kw):
+        step = real_make(mesh, cfg, grid, extent, **kw)
+        fwd = dist_mod.make_gs_forward(
+            mesh, grid, K=cfg.assign_K, impl=kw["impl"], views=kw["views"],
+            lambda_dssim=cfg.lambda_dssim, k_tiers=kw["k_tiers"],
+            tier_caps=kw["tier_caps"], win_size=kw["win_size"],
+            assign_impl=kw["assign_impl"], assign_budget=kw["assign_budget"],
+            return_tiles=True,
+        )
+
+        def timed(g, opt, batch):
+            counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+            rec["part_losses"].append(partition_losses(
+                fwd, g, batch, grid.n_tiles, cfg.lambda_dssim, kw["win_size"]
+            ))
+            rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+            calls = []
+            sync(device)
+            t0 = time.perf_counter()
+            with kernel_calls(calls):
+                out = step(g, opt, batch)
+            sync(device)
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["step_calls"] = calls
+            ov = out[3]
+            rec["overflow"].append((int(ov["tiles"]), int(ov["assign"])))
+            return out
+
+        return timed
+
+    def fit(g, cams, gts, masks, cfg, *, mesh, **kw):
+        f0, b0 = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        out = real_fit(g, cams, gts, masks, cfg, mesh=mesh, **kw)
+        rec["fit_launches"] = {
+            "fwd": rasterize.LAUNCHES - f0,
+            "bwd": rasterize.BWD_LAUNCHES - b0,
+        }
+        rec.update(
+            g0=g, g1=out[0], losses=out[2], cams=cams, gts=gts, masks=masks,
+            cfg=cfg, grid=kw["grid"], extent=kw["extent"], mesh=str(mesh),
+            schedule=kw["schedule"], densify_every=kw["densify_every"],
+            densify_from=kw["densify_from"],
+        )
+        return out
+
+    with patched(dist_mod, "fit_partitions", fit):
+        with patched(dist_mod, "make_gs_train_step", make):
+            yield rec
+
+
+def run_cli(argv):
+    """``launch.train.main(argv)`` with its standard output kept (and
+    echoed) -> the output's lines."""
+    buf = io_mod.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"cli | {line}")
+    if rc != 0:
+        raise AssertionError(f"launch.train exited {rc}")
+    return text
+
+
+def cli_argv(root, device, *, dataset, full, parts, resolution, views, steps,
+             densify_every, densify_from, ckpt_every):
+    argv = ["--gs", "--dataset", dataset] + (["--full"] if full else [])
+    argv += ["--parts", str(parts), "--resolution", str(resolution)]
+    argv += ["--views", str(views), "--steps", str(steps)]
+    argv += ["--densify-every", str(densify_every), "--densify-from"]
+    argv += [str(densify_from), "--ckpt-every", str(ckpt_every)]
+    return argv + ["--ckpt-dir", str(root), "--device", device]
+
+
+def single_partition_steps(rec):
+    """``fit_partition`` on partition 0 of the CLI's initial state, with the
+    CLI's cfg, view batch, step count and densify events -> each step's
+    wall time (ms)."""
+    times = []
+    real_make = train_mod.make_train_step
+    dev = rec["g0"].means.device
+
+    def make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(*sa, **sk):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = step(*sa, **sk)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    g0 = type(rec["g0"])(*(f[0] for f in rec["g0"]))
+    masks = None if rec["masks"] is None else rec["masks"][0]
+    with patched(train_mod, "make_train_step", make):
+        train_mod.fit_partition(
+            g0, rec["cams"], rec["gts"][0], masks, rec["cfg"],
+            steps=len(rec["step_ms"]), extent=rec["extent"], grid=rec["grid"],
+            densify_every=rec["densify_every"], densify_from=rec["densify_from"],
+        )
+    return times
+
+
+def train_cli_phase(
+    device,
+    tmp,
+    issue,
+    *,
+    dataset="kingsnake",
+    full=True,
+    parts=2,
+    resolution=1024,
+    views=16,
+    steps=120,
+    densify_every=10,
+    densify_from=100,
+    ckpt_every=60,
+):
+    """``python -m repro_torch.launch.train --gs ...`` as a user runs it (the
+    defaults: the full-size kingsnake scene), in-process on a world-1
+    process group (NCCL on the card), then again with ``--ckpt-quantize
+    int8`` on a copy of its last checkpoint (no step to run: it merges and
+    writes the int8 merged checkpoint) -> (the float32 and int8 roots, the
+    final state merged in memory, the launches of the first run: both counts
+    set to 0 just before it and read just after, both kernels' stats on the
+    last step's tier tables).  Checked: bwd launches == fwd launches > 0
+    inside ``fit_partitions``, each partition's loss falls
+    (the mean of its first 10 steps against its last 10), the last step's
+    overflow counters 0, merged metrics finite, and both kernels within
+    TOL / BWD_TOL of their plain versions on the last step's tier tables
+    (``issue``: {kernel: hot loop}, as ``time_tiers`` takes it)."""
+    root, qroot = tmp / "cli", tmp / "cli_int8"
+    kw = dict(dataset=dataset, full=full, parts=parts, resolution=resolution)
+    kw.update(views=views, steps=steps, densify_every=densify_every)
+    kw.update(densify_from=densify_from, ckpt_every=ckpt_every)
+    argv = cli_argv(root, device, **kw)
+    log(f"train CLI: python -m repro_torch.launch.train {' '.join(argv)}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    t0 = time.perf_counter()
+    with observed_fit_partitions(device, rec):
+        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        text = run_cli(argv)
+        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    losses = np.asarray(rec["losses"])
+    metrics = re.search(r"PSNR ([0-9.]+)\s+SSIM ([0-9.]+)", text)
+    psnr, ssim = (float(x) for x in metrics.groups())
+    step_ms = statistics.median(rec["step_ms"])
+    fit = rec["fit_launches"]
+    part = np.asarray(rec["part_losses"])                    # (steps, P)
+    first, last = part[:10].mean(0), part[-10:].mean(0)
+    log(
+        f"train CLI: {len(losses)} steps on mesh {rec['mesh']}, loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; per partition, mean of the "
+        f"first/last 10 steps {[round(float(x), 6) for x in first]} -> "
+        f"{[round(float(x), 6) for x in last]}; median step {step_ms:.3f} ms (min "
+        f"{min(rec['step_ms']):.3f}, max {max(rec['step_ms']):.3f}); launches in "
+        f"fit_partitions {fit}, in the whole run {launches}; last overflow "
+        f"(tiles, assign) {rec['overflow'][-1]}; schedule {rec['schedule']}; "
+        f"peak device memory {peak:.2f} GiB; merged PSNR {psnr} SSIM {ssim}; "
+        f"phase {seconds:.3f} s"
+    )
+    log(f"train CLI losses {[round(float(x), 6) for x in losses]}")
+    for p in range(part.shape[1]):
+        log(f"train CLI partition {p} losses {part[:, p].round(6).tolist()}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train CLI losses {losses}")
+    if on_card and not fit["bwd"] == fit["fwd"] > 0:
+        raise AssertionError(f"fit_partitions launches {fit}")
+    for p, (a, b) in enumerate(zip(first, last)):
+        if not b < a:
+            raise AssertionError(f"partition {p}: loss did not fall {a} -> {b}")
+    if rec["overflow"][-1] != (0, 0):
+        raise AssertionError(f"overflow at the last step {rec['overflow'][-1]}")
+    if not (math.isfinite(psnr) and math.isfinite(ssim)):
+        raise AssertionError(f"merged metrics {psnr} {ssim}")
+
+    # both kernels held against their plain versions, and timed, on the
+    # tier tables of the CLI's last fit_partitions step (its own 8x16
+    # tiles, ladder and caps, and the loss's own cotangent)
+    th, tw = rec["grid"].tile_h, rec["grid"].tile_w
+    calls = rec.pop("step_calls")
+    planes = sorted(
+        (
+            (a[0].shape[1],) + a
+            for kind, a, _ in calls
+            if kind == "bwd" and a[0].shape[0]
+        ),
+        key=lambda x: x[0],
+    )
+    n_fwd = sum(kind == "fwd" and a[0].shape[0] > 0 for kind, a, _ in calls)
+    del calls
+    tiers = {"fwd": {}, "bwd": {}}
+    if on_card or planes:  # on the CPU the step runs the plain versions
+        if not (planes and n_fwd == len(planes)):
+            raise AssertionError(f"last step: {n_fwd} fwd calls, {len(planes)} bwd")
+        shapes = [(p[0], p[1].shape[0]) for p in planes]
+        log(f"train CLI last step: (K, tiles) {shapes} at {th}x{tw}")
+        tiers = time_tiers(planes, th, tw, issue, "train CLI")
+    del planes
+
+    # the batched two-partition step next to fit_partition's one-partition
+    # step, same card, cfg, scene, step count and densify events; medians
+    # over all steps and over the same steady window
+    single = single_partition_steps(rec)
+    stop = min(STEADY[1], rec["densify_from"], len(single))
+    window = slice(min(STEADY[0], stop - 1), stop)
+    both = {"fit_partitions": rec["step_ms"], "fit_partition": single}
+    med = {k: statistics.median(v) for k, v in both.items()}
+    steady = {k: statistics.median(v[window]) for k, v in both.items()}
+    log(
+        f"step time: fit_partitions ({parts} partitions in one step) vs "
+        f"fit_partition (partition 0 alone), {len(single)} steps each: median "
+        f"over all steps {med}, over steps [{window.start}, {window.stop}) "
+        f"{steady}, ratio {steady['fit_partitions'] / steady['fit_partition']:.4f}"
+    )
+    log(f"fit_partition step ms {[round(x, 3) for x in single]}")
+    log(f"fit_partitions step ms {[round(x, 3) for x in rec['step_ms']]}")
+
+    # the same CLI again on a copy of its last checkpoint, with int8 cold
+    # attributes: it resumes at the last step, trains none, merges, writes
+    shutil.copytree(root / f"step_{steps:09d}", qroot / f"step_{steps:09d}")
+    qtext = run_cli(cli_argv(qroot, device, **kw) + ["--ckpt-quantize", "int8"])
+    if "skipping to merge" not in qtext or "quantized" not in qtext:
+        raise AssertionError("the int8 re-merge did not run as expected")
+    g1 = rec["g1"]
+    merged = merge_partitions(
+        [type(g1)(*(f[p] for f in g1)) for p in range(parts)], range(parts)
+    )
+    return {"f32": root, "int8": qroot}, merged, launches, tiers
 
 
 def main(argv=None):
@@ -1407,7 +1754,7 @@ def main(argv=None):
     # 5. train at paper scale; the counts cover the whole run_pipeline
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result, records, train_launches, scene = train_phase(device)
+    result, records, train_launches = train_phase(device)
     log(
         f"train: phase {time.perf_counter() - t0:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
@@ -1420,18 +1767,23 @@ def main(argv=None):
     train_breakdown_phase(records[0])
     train_profile_phase(records[0])
 
-    # 7-8. checkpoints: resume a partition; serve the trained merged model
-    # from its checkpoint (counts zeroed before each path inside the phase)
+    # 7. checkpoints: resume a partition (counts zeroed inside the phase)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         torch.cuda.reset_peak_memory_stats()
         resume_launches = resume_phase(records[0], device, tmp / "resume")
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"resume: peak device memory {peak:.2f} GiB")
-        del records
+        del records, result
+        torch.cuda.empty_cache()
+
+        # 8. the training CLI: the distributed trainer on a world-1 NCCL
+        # group (counts zeroed just before it), then 9. serving the merged
+        # checkpoints it wrote
+        roots, merged, cli_launches, cli_tiers = train_cli_phase(device, tmp, issue)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ckpt_serve_launches = serve_ckpt_phase(result.merged, scene, device, tmp / "gs")
+        ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"serve from checkpoint: peak device memory {peak:.2f} GiB")
     finally:
@@ -1440,15 +1792,20 @@ def main(argv=None):
 
     fwd_errs = [sweep_err, stats["max_abs_err"]]
     fwd_errs += [t["max_abs_err"] for t in tiers["fwd"].values()]
+    fwd_errs += [t["max_abs_err"] for t in cli_tiers["fwd"].values()]
+    fwd_errs += [cold["max_abs_err"]]
     bwd_errs = [bwd_sweep_err] + [t["max_abs_err"] for t in tiers["bwd"].values()]
+    bwd_errs += [t["max_abs_err"] for t in cli_tiers["bwd"].values()]
     log(
         f"launches on the main paths: serve fwd {serve_launches}; train fwd "
         f"{train_launches['fwd']} bwd {train_launches['bwd']}; resume fwd "
-        f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; serve from "
+        f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; train CLI fwd "
+        f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
-    fwd_launches += resume_launches["fwd"] + ckpt_serve_launches
+    fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
+    fwd_launches += ckpt_serve_launches
     kernels = [
         {
             "name": "rasterize_fwd",
@@ -1468,7 +1825,8 @@ def main(argv=None):
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
-            "launches": train_launches["bwd"] + resume_launches["bwd"],
+            "launches": train_launches["bwd"] + resume_launches["bwd"]
+            + cli_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

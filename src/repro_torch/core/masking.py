@@ -1,10 +1,10 @@
 """Background masks + masked training loss (paper §II steps 4-5).
 
 Port of ``repro.core.masking`` (``dilate_mask``, ``background_mask``,
-``gs_loss``).  Each partition renders its own data's coverage per camera;
-the training loss is evaluated only on covered pixels (plus a small
-dilation so silhouette gradients survive).  The per-tile loss of the
-distributed path (``tile_l1_dssim_loss``) comes with that path.
+``gs_loss``, ``tile_l1_dssim_loss``).  Each partition renders its own
+data's coverage per camera; the training loss is evaluated only on covered
+pixels (plus a small dilation so silhouette gradients survive).  The
+distributed path evaluates it per tile.
 """
 
 from __future__ import annotations
@@ -48,4 +48,26 @@ def gs_loss(pred_rgb, gt_rgb, mask=None, *, lambda_dssim: float = 0.2):
         m = mask.to(torch.float32)[..., None]
         l1 = ((a - b).abs() * m).sum() / torch.clamp(m.sum() * 3.0, min=1.0)
     dss = metrics.d_ssim(a, b, mask=mask)
+    return (1.0 - lambda_dssim) * l1 + lambda_dssim * dss
+
+
+def tile_l1_dssim_loss(pred_tiles, gt_tiles, mask_tiles=None, *,
+                       lambda_dssim: float = 0.2, win_size: int = 7):
+    """Per-tile loss of the distributed path: SSIM windows stay inside each
+    tile (win 7 on 8-row tiles).  pred/gt (T, C, th, tw); mask (T, th, tw)
+    or None."""
+    a = pred_tiles.to(torch.float32)
+    b = gt_tiles.to(torch.float32)
+    if mask_tiles is None:
+        m = torch.ones(a.shape[:1] + a.shape[2:], dtype=torch.float32,
+                       device=a.device)
+    else:
+        m = mask_tiles.to(torch.float32)
+    mc = m[:, None]
+    l1 = ((a - b).abs() * mc).sum() / torch.clamp(mc.sum() * a.shape[1],
+                                                  min=1.0)
+    sm = metrics.tile_ssim_map(a, b, win_size=win_size)    # (T, th, tw, C)
+    ww = m[..., None]
+    ss = (sm * ww).sum() / torch.clamp(ww.sum() * sm.shape[-1], min=1.0)
+    dss = (1.0 - ss) / 2.0
     return (1.0 - lambda_dssim) * l1 + lambda_dssim * dss

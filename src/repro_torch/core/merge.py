@@ -4,13 +4,13 @@ Port of ``repro.core.merge`` (``dedupe_mask``, ``merge_partitions``).  A
 partition contributes only the gaussians it owns (``owner == part_id``):
 ghosts are the neighbour's responsibility, so every source gaussian appears
 exactly once in the merged scene; densified children inherit their
-parent's owner.  The fixed-capacity ``merge_padded`` of the distributed
-path comes with that path.
+parent's owner.  ``merge_padded`` is the fixed-capacity merge of the
+distributed path.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -34,3 +34,26 @@ def merge_partitions(parts: Sequence[Gaussians],
         for k in Gaussians._fields:
             fields[k].append(getattr(g, k)[keep])
     return Gaussians(**{k: torch.cat(v) for k, v in fields.items()})
+
+
+def merge_padded(parts: Sequence[Gaussians], part_ids: Sequence[int] = None,
+                 capacity: Optional[int] = None) -> Gaussians:
+    """Fixed-capacity merge: capacity = the sum of the partitions'
+    capacities (or ``capacity``, zero-padded up to it); deduped slots are
+    deactivated instead of compacted away."""
+    if part_ids is None:
+        part_ids = list(range(len(parts)))
+    cat = {k: torch.cat([getattr(g, k) for g in parts])
+           for k in Gaussians._fields}
+    cat["active"] = torch.cat([dedupe_mask(g, pid)
+                               for g, pid in zip(parts, part_ids)])
+    out = Gaussians(**cat)
+    if capacity is not None and capacity != out.capacity:
+        if capacity < out.capacity:
+            raise ValueError(f"capacity {capacity} < the {out.capacity} "
+                             "slots of the partitions")
+        pad = capacity - out.capacity
+        out = Gaussians(*[
+            torch.cat([f, f.new_zeros((pad,) + tuple(f.shape[1:]))])
+            for f in out])
+    return out

@@ -59,6 +59,31 @@ def ssim_map(a, b, *, win_size: int = 11, sigma: float = 1.5):
         (mu_aa + mu_bb + c1) * (s_aa + s_bb + c2))
 
 
+def tile_ssim_map(a, b, *, win_size: int = 11, sigma: float = 1.5):
+    """Per-tile SSIM maps: (T, C, th, tw) tile stacks -> (T, th, tw, C),
+    each tile's ``ssim_map`` on its own (the window zero-pads at every
+    tile edge), in one batched convolution."""
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    T, C, th, tw = a.shape
+    win = _gaussian_window(win_size, sigma, device=a.device)[None, None]
+
+    def filt(x):
+        y = F.conv2d(x.reshape(T * C, 1, th, tw), win, padding=win_size // 2)
+        return y.reshape(T, C, th, tw)
+
+    mu_a = filt(a)
+    mu_b = filt(b)
+    mu_aa, mu_bb, mu_ab = mu_a * mu_a, mu_b * mu_b, mu_a * mu_b
+    s_aa = filt(a * a) - mu_aa
+    s_bb = filt(b * b) - mu_bb
+    s_ab = filt(a * b) - mu_ab
+    m = ((2 * mu_ab + c1) * (2 * s_ab + c2)) / (
+        (mu_aa + mu_bb + c1) * (s_aa + s_bb + c2))
+    return m.permute(0, 2, 3, 1)
+
+
 def ssim(a, b, mask=None, **kw):
     m = ssim_map(a, b, **kw)
     if mask is None:

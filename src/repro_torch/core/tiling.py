@@ -662,15 +662,17 @@ def untile_image(tiles, grid: TileGrid):
 
 
 def tile_image(img, grid: TileGrid):
-    """(H, W, C) image -> (T, C, th, tw) tile layout (the inverse of
-    ``untile_image``; pixels past the image edge are zero-filled)."""
+    """(..., H, W, C) image -> (..., T, C, th, tw) tile layout (the inverse
+    of ``untile_image``; pixels past the image edge are zero-filled)."""
     th, tw = grid.tile_h, grid.tile_w
-    Hp, Wp = grid.ny * th, grid.nx * tw
+    lead = img.shape[:-3]
+    n = len(lead)
+    H, W, C = img.shape[-3:]
     img = torch.nn.functional.pad(
-        img, (0, 0, 0, Wp - img.shape[1], 0, Hp - img.shape[0]))
-    t = img.reshape(grid.ny, th, grid.nx, tw, img.shape[-1])
-    return t.permute(0, 2, 4, 1, 3).reshape(grid.n_tiles, img.shape[-1],
-                                            th, tw)
+        img, (0, 0, 0, grid.nx * tw - W, 0, grid.ny * th - H))
+    t = img.reshape(lead + (grid.ny, th, grid.nx, tw, C))
+    t = t.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3)
+    return t.reshape(lead + (grid.n_tiles, C, th, tw))
 
 
 # ---------------------------------------------------------------------------

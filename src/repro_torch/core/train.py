@@ -40,10 +40,10 @@ from repro_torch.core.tiling import (DEFAULT_TILE_BUDGET, TierSchedule,
 #: ROADMAP queue 1 item that ports the part)
 _MISSING_KNOBS = {
     "coarse": (None, "item 5 (the coarse superblock pre-cull)"),
-    "gather_mode": ("f32", "item 16 (core/distributed.py)"),
-    "strip_budget": (1.0, "item 16 (core/distributed.py)"),
-    "exchange": (False, "item 16 (core/distributed.py)"),
-    "exchange_budget": (None, "item 16 (core/distributed.py)"),
+    "gather_mode": ("f32", "item 12 (bf16 wire tables, gather_mode)"),
+    "strip_budget": (1.0, "item 19 (the 'model' axis strips)"),
+    "exchange": (False, "item 18 (the sparse-overlap exchange)"),
+    "exchange_budget": (None, "item 18 (the sparse-overlap exchange)"),
     "grad_compress": ("none", "item 12 (optim/compress.py)"),
 }
 

@@ -1,0 +1,197 @@
+"""Rank-side functions of the distributed port tests (torch only; run by
+``_torch_dist.run_ranks`` in spawned processes).  Inputs arrive as ``.npz``
+files written by the test, results leave the same way."""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import distributed as D
+from repro_torch.core.cameras import Camera
+from repro_torch.core.gaussians import Gaussians
+from repro_torch.core.tiling import TileGrid
+from repro_torch.core.train import GSTrainCfg, init_opt
+from repro_torch.runtime.checkpoint import CheckpointManager
+
+FIELDS = ("means", "log_scales", "quats", "opacity_logit", "colors")
+
+
+def load_scene(path):
+    """-> (g (P, N), cams, gts (P, V, H, W, 3), masks (P, V, H, W) or
+    None, grid, meta) from a test's npz."""
+    z = np.load(path, allow_pickle=False)
+    meta = json.loads(str(z["meta"]))
+    g = Gaussians(**{k: torch.from_numpy(z[f"g_{k}"].copy())
+                     for k in Gaussians._fields})
+    cams = Camera(torch.from_numpy(z["cam_view"].copy()),
+                  torch.from_numpy(z["cam_fx"].copy()),
+                  torch.from_numpy(z["cam_fy"].copy()),
+                  int(meta["width"]), int(meta["height"]))
+    masks = torch.from_numpy(z["masks"].copy()) if "masks" in z else None
+    grid = TileGrid(*meta["grid"])
+    return g, cams, torch.from_numpy(z["gts"].copy()), masks, grid, meta
+
+
+def save_tree(path, g, opt=None, losses=None, **extra):
+    out = {f"g_{k}": v.numpy() for k, v in g._asdict().items()}
+    if opt is not None:
+        for k in FIELDS:
+            out[f"m_{k}"] = opt.m[k].numpy()
+            out[f"v_{k}"] = opt.v[k].numpy()
+        out["grad_accum"] = opt.grad_accum.numpy()
+        out["grad_count"] = opt.grad_count.numpy()
+        out["step"] = opt.step.numpy()
+    if losses is not None:
+        out["losses"] = np.asarray(losses, np.float64)
+    out.update(extra)
+    np.savez(path, **out)
+
+
+def step_rank(mesh, scene_path, out_dir, k_tiers, tier_caps, cfg_kw, views):
+    """One distributed train step from the scene's state on the batch of
+    views ``[0, views)``; rank 0 saves the gathered state, every rank its
+    loss."""
+    g, cams, gts, masks, grid, meta = load_scene(scene_path)
+    cfg = GSTrainCfg(**cfg_kw)
+    gt_t, mask_t = D._tile_view_batches(gts, masks, grid)
+    vi = torch.arange(views)
+    batch = {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+             "cam": Camera(cams.view[vi], cams.fx[vi], cams.fy[vi],
+                           cams.width, cams.height)}
+    step = D.make_gs_train_step(
+        mesh, cfg, grid, meta["extent"], impl="ref", views=views,
+        k_tiers=None if k_tiers is None else tuple(k_tiers),
+        tier_caps=None if tier_caps is None else tuple(tier_caps),
+        return_overflow=True)
+    gl, ol = D.gs_shard_state((g, init_opt(g)), mesh)
+    g1, o1, loss, ov = step(gl, ol, D.gs_shard_batch(batch, mesh, views))
+    g1, o1 = D.gather_partitions((g1, o1), mesh)
+    rank = dist.get_rank()
+    np.save(os.path.join(out_dir, f"loss{rank}.npy"),
+            np.asarray([float(loss), int(ov["tiles"]), int(ov["assign"]),
+                        int(ov["exchange"])], np.float64))
+    if rank == 0:
+        save_tree(os.path.join(out_dir, "state.npz"), g1, o1)
+
+
+def fit_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw, noise_path=None,
+             ckpt_dir=None, tag="fit", seed=None, warm=None):
+    """``fit_partitions`` on the scene; rank 0 saves the gathered result,
+    every rank its losses.  ``warm=(dir, step)``: warm-start from that
+    checkpoint's tree, extra and step instead of a disk resume."""
+    g, cams, gts, masks, grid, meta = load_scene(scene_path)
+    cfg = GSTrainCfg(**cfg_kw)
+    kw = dict(fit_kw)
+    if warm is not None:
+        tree, extra = CheckpointManager(warm[0]).restore(
+            warm[1], (g, init_opt(g)), device="cpu")
+        kw["warm_start"] = (tuple(tree), extra, warm[1])
+    if "grid" in kw:
+        kw["grid"] = TileGrid(*kw["grid"])
+    if noise_path is not None:
+        z = np.load(noise_path)
+        kw["densify_noise"] = [z[k] for k in sorted(z.files)]
+    if seed is not None:
+        kw["generator"] = torch.Generator().manual_seed(seed)
+    if ckpt_dir is not None:
+        kw["ckpt"] = CheckpointManager(ckpt_dir, keep=0)
+    sched = cfg.tier_schedule()
+    g1, o1, losses = D.fit_partitions(g, cams, gts, masks, cfg, mesh=mesh,
+                                      schedule=sched, **kw)
+    g1, o1 = D.gather_partitions((g1, o1), mesh)
+    rank = dist.get_rank()
+    np.save(os.path.join(out_dir, f"{tag}_losses{rank}.npy"),
+            np.asarray(losses, np.float64))
+    if rank == 0:
+        caps = [] if sched is None or sched.tier_caps is None \
+            else list(sched.tier_caps)
+        save_tree(os.path.join(out_dir, f"{tag}.npz"), g1, o1, losses,
+                  caps=np.asarray(caps, np.int64))
+
+
+def probe_counter_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw, noise_path,
+                       ckpt_dir, tag):
+    """``fit_rank`` with the tier probe counted (a resume makes none)."""
+    calls = []
+    real = D.probe_gs_schedule
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    D.probe_gs_schedule = counted
+    try:
+        fit_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw,
+                 noise_path=noise_path, ckpt_dir=ckpt_dir, tag=tag)
+    finally:
+        D.probe_gs_schedule = real
+    np.save(os.path.join(out_dir, f"{tag}_probes{dist.get_rank()}.npy"),
+            np.asarray(len(calls)))
+
+
+def cli_rank(mesh, argv, out_path):
+    """``repro_torch.launch.train.main(argv)`` on this rank, stdout to
+    ``out_path`` (rank-suffixed)."""
+    import contextlib
+
+    from repro_torch.launch import train
+
+    path = f"{out_path}.{dist.get_rank()}"
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        rc = train.main(list(argv))
+    if rc:
+        raise SystemExit(rc)
+
+
+def card_fit_rank(mesh, out_dir, tag, steps):
+    """``fit_partitions`` on this rank's card: two partitions of a 128-splat
+    sphere-shell model (192 slots), 4 views of 32x32 with two a step, a
+    densify event every 3 steps with injected split noise.  Every rank saves
+    its losses and its kernel launches; rank 0 the gathered state."""
+    from repro_torch.core.cameras import orbital_rig
+    from repro_torch.core.gaussians import from_points
+    from repro_torch.data.isosurface import point_cloud_for
+    from repro_torch.kernels import rasterize
+    from repro_torch.runtime.checkpoint import tree_map
+
+    dev = mesh.device
+    pts, cols = point_cloud_for("sphere_shell", 128)
+    g = from_points(pts[:128], cols[:128], capacity=192, opacity=0.7,
+                    device=dev)
+    g = Gaussians(*(torch.stack([f, f]) for f in g))
+    cams = orbital_rig(4, (0.5, 0.5, 0.5), 1.6, width=32, height=32,
+                       device=dev)
+    gts = torch.stack([torch.full((4, 32, 32, 3), c, device=dev)
+                       for c in (0.5, 0.3)])
+    cfg = GSTrainCfg(K=8, tile_h=8, tile_w=16, lr_colors=5e-2, max_new=32,
+                     densify_grad_thresh=1e-9)
+    noise = [np.random.default_rng(e).normal(size=(2, 32, 3)).astype("f4")
+             for e in range(steps // 3)]
+    fwd, bwd = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+    g1, o1, losses = D.fit_partitions(
+        g, cams, gts, None, cfg, mesh=mesh, steps=steps, extent=1.0,
+        densify_every=3, densify_from=0, grid=TileGrid(32, 32, 8, 16),
+        view_batch=2, densify_noise=noise)
+    launches = [rasterize.LAUNCHES - fwd, rasterize.BWD_LAUNCHES - bwd]
+    g1, o1 = D.gather_partitions((g1, o1), mesh)
+    rank = dist.get_rank()
+    np.save(os.path.join(out_dir, f"{tag}_losses{rank}.npy"),
+            np.asarray(losses, np.float64))
+    np.save(os.path.join(out_dir, f"{tag}_launches{rank}.npy"),
+            np.asarray(launches))
+    if rank == 0:
+        g1, o1 = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                          else x, (g1, o1))
+        save_tree(os.path.join(out_dir, f"{tag}.npz"), g1, o1, losses)
+
+
+def jobs_rank(mesh, jobs):
+    """Run several rank functions in turn on one mesh: ``jobs`` is a list
+    of (function name, args) -- one spawn for many checks."""
+    for name, args in jobs:
+        globals()[name](mesh, *args)

@@ -367,3 +367,88 @@ def test_cuda_resumed_fit_partition(cuda, tmp_path):
     fwd, bwd = rasterize.LAUNCHES - fwd, rasterize.BWD_LAUNCHES - bwd
     assert len(tail) == 3 and fwd == bwd >= 3
     np.testing.assert_allclose(tail, full[3:], rtol=1e-3, atol=0)
+
+
+def test_cuda_fit_partitions_nccl_matches_cpu_gloo(cuda):
+    """``fit_partitions`` at world size 1 on the card (NCCL) and on the CPU
+    (gloo), the same two-partition model and injected split noise: both
+    kernels launch on every card step, and the losses agree within 1e-3
+    relative (the card's reduction order and atomics, fed through Adam)."""
+    from repro_torch.core.distributed import fit_partitions
+    from repro_torch.core.tiling import TileGrid
+    from repro_torch.launch import mesh as mesh_mod
+
+    noise = [np.random.default_rng(e).normal(size=(2, 32, 3)).astype("f4")
+             for e in range(2)]
+    losses, launches = {}, None
+    for dev in (cuda, "cpu"):
+        on_card = torch.device(dev).type == "cuda"
+        g, cams, gts, cfg = _tiny_fit(dev)
+        g2 = type(g)(*(torch.stack([f, f]) for f in g))
+        rank, world, _ = mesh_mod.init_distributed(dev, timeout_s=60)
+        try:
+            assert (rank, world) == (0, 1)
+            mesh = mesh_mod.make_mesh((1, 1), ("part", "view"))
+            assert mesh.backend == ("nccl" if on_card else "gloo")
+            fwd, bwd = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+            _, _, losses[str(dev)] = fit_partitions(
+                g2, cams, torch.stack([gts, gts]), None, cfg, mesh=mesh,
+                steps=4, extent=1.0, densify_every=2, densify_from=0,
+                grid=TileGrid(32, 32, 8, 16), densify_noise=noise)
+            if on_card:
+                launches = (rasterize.LAUNCHES - fwd,
+                            rasterize.BWD_LAUNCHES - bwd)
+        finally:
+            mesh_mod.destroy_distributed()
+    assert launches[0] == launches[1] >= 4
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-3,
+                               atol=0)
+
+
+def test_cuda_fit_partitions_nccl_2x2_matches_world_one(cuda, tmp_path):
+    """``fit_partitions`` on a 2x2 ("part", "view") NCCL mesh of four cards
+    against the same run on one card (world size 1), each a set of spawned
+    ranks: two partitions, two views a step, 6 steps with densify events
+    after steps 3 and 6 (injected split noise).  Both kernels launch on
+    every step of every rank; all four ranks report the same losses, and
+    they agree with the one-card run within 1e-3 relative (the gradient
+    sums run in another order: over two ranks' views and the "part"
+    reduce-scatter instead of one scatter).  The states hold the same
+    live splats, their owners and step; each trained field agrees within
+    2 * steps * its learning rate, the most that Adam's near-unit steps let
+    two runs whose gradients differ in rounding drift apart (a component
+    whose gradient is ~0 may step either way), and 99% of its components
+    within 1e-4."""
+    import _torch_dist
+    import _torch_dist_ranks as ranks
+    from repro_torch.core.train import GSTrainCfg, group_lrs
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a 2x2 NCCL mesh)")
+    rasterize.build()        # once, before the ranks load it
+    steps = 6
+    for shape, tag in (((2, 2), "mesh22"), ((1, 1), "mesh11")):
+        _torch_dist.run_ranks(ranks.card_fit_rank, shape, tmp_path,
+                              str(tmp_path), tag, steps, timeout=300.0,
+                              device="cuda")
+    losses = [np.load(tmp_path / f"mesh22_losses{r}.npy") for r in range(4)]
+    for r in range(1, 4):
+        np.testing.assert_array_equal(losses[r], losses[0])
+    for tag, world in (("mesh22", 4), ("mesh11", 1)):
+        for r in range(world):
+            fwd, bwd = np.load(tmp_path / f"{tag}_launches{r}.npy")
+            assert fwd == bwd >= steps, (tag, r, fwd, bwd)
+    got, want = (np.load(tmp_path / f"{t}.npz") for t in ("mesh22", "mesh11"))
+    assert len(got["losses"]) == steps
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3,
+                               atol=0)
+    for k in ("g_active", "g_owner", "step"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    lrs = group_lrs(GSTrainCfg(lr_colors=5e-2), 1.0)
+    dev = {k: np.abs(got[f"g_{k}"] - want[f"g_{k}"]) for k in lrs}
+    print(f"2x2 NCCL vs one card: losses {got['losses'].tolist()} vs "
+          f"{want['losses'].tolist()}; per field (max, 99th percentile) "
+          f"{ {k: (d.max(), np.quantile(d, 0.99)) for k, d in dev.items()} }")
+    for k, lr in lrs.items():
+        assert dev[k].max() <= 2 * steps * lr, (k, dev[k].max())
+        assert np.quantile(dev[k], 0.99) <= 1e-4, k

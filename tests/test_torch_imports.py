@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: no module of ``src/repro_torch``,
-and not ``chip_smoke.py`` or ``tools/torch_kernel_ab.py``, imports JAX or
-anything of the JAX package ``repro`` (parsed with ``ast``, so nothing is
-imported to check)."""
+and not ``chip_smoke.py``, ``tools/torch_kernel_ab.py`` or the rank-side
+test helpers ``tests/_torch_dist*.py`` (the gloo ranks must never load
+JAX), imports JAX or anything of the JAX package ``repro`` (parsed with
+``ast``, so nothing is imported to check)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py"] \
+    + sorted((ROOT / "tests").glob("_torch_dist*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -30,6 +32,9 @@ def test_the_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/core/serving.py" in names
     assert "src/repro_torch/kernels/rasterize.py" in names
+    for mod in ("core/distributed.py", "launch/mesh.py", "launch/train.py"):
+        assert f"src/repro_torch/{mod}" in names
+    assert "tests/_torch_dist_ranks.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -154,6 +154,19 @@ def test_tile_image_inverts_untile():
             torch.cat([got, got[:, :1]], 1), tgrid)[..., :3].numpy(), img)
 
 
+def test_tile_image_leading_dims_match_reference_vmap():
+    """(P, V, H, W, C) images tile as the reference's ``tile_image``
+    vmapped over both leading axes (the distributed batch layout)."""
+    dims = (60, 44, 8, 16)
+    grid, tgrid = jt.TileGrid(*dims), tt.TileGrid(*dims)
+    img = np.random.default_rng(6).normal(
+        size=(2, 3, dims[1], dims[0], 1)).astype(np.float32)
+    tile = jax.vmap(jax.vmap(lambda x: jt.tile_image(x, grid)))
+    want = np.asarray(tile(jnp.asarray(img)))
+    got = tt.tile_image(torch.from_numpy(img), tgrid)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_rasterize_tiles_tiered_matches_reference():
     """Two non-empty tiers (K 4 and 16) and an empty one, padded slots
     carrying the sentinel id, into a 10-tile image."""
