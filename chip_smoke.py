@@ -79,7 +79,16 @@ Phases (any failure propagates and the script exits nonzero):
              20-99, five cycles of the 16 views).  Then the CLI again with
              ``--ckpt-quantize int8`` on a copy of its last checkpoint: no
              step to run, it merges and writes int8.
-9. serve     the two merged checkpoints the CLI wrote (float32, and int8
+9. mesh      the distributed step on a world-1 ("pod", "part", "model",
+   axes      "view") 1x1x1x1 NCCL mesh: one train step of the CLI's initial
+             state (both partitions, 8x16 tiles, view 0, the schedule probed
+             as ``fit_partitions`` probes it) at ``strip_budget`` 1.0 and
+             0.9, three times each (step ms printed), and each budget's
+             forward: the two budgets' forward losses, tiles and step losses
+             agree within 1e-6 (at n_model = 1 the strip is the whole grid
+             and 0.9 of the 2.88M slots exceeds the 2.22M live splats), and
+             both kernels launch in the steps.
+10. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
    ckpt      (16 views, max_batch 8, two passes): the repeat pass all hits,
              the float32 checkpoint's images equal to a server built in
@@ -106,6 +115,7 @@ loss for some steps, so the loss check would see the jump).
 
 import argparse
 import contextlib
+import dataclasses
 import io as io_mod
 import json
 import math
@@ -1569,7 +1579,8 @@ def train_cli_phase(
     writes the int8 merged checkpoint) -> (the float32 and int8 roots, the
     final state merged in memory, the launches of the first run: both counts
     set to 0 just before it and read just after, both kernels' stats on the
-    last step's tier tables).  Checked: bwd launches == fwd launches > 0
+    last step's tier tables, the record of its ``fit_partitions`` call:
+    initial state, rig, images, cfg, grid).  Checked: bwd launches == fwd launches > 0
     inside ``fit_partitions``, each partition's loss falls
     (the mean of its first 10 steps against its last 10), the last step's
     overflow counters 0, merged metrics finite, and both kernels within
@@ -1677,7 +1688,89 @@ def train_cli_phase(
     merged = merge_partitions(
         [type(g1)(*(f[p] for f in g1)) for p in range(parts)], range(parts)
     )
-    return {"f32": root, "int8": qroot}, merged, launches, tiers
+    return {"f32": root, "int8": qroot}, merged, launches, tiers, rec
+
+
+def mesh_axes_phase(rec, device, *, budgets=(1.0, 0.9), reps=3):
+    """The distributed step on the four-axis mesh: a world-1 ("pod", "part",
+    "model", "view") 1x1x1x1 group (NCCL on the card) and one train step
+    of the CLI's initial state (both partitions, its cfg and 8x16 grid,
+    view 0), probed as ``fit_partitions`` probes, once per strip budget.
+    At 1x1x1x1 the strip is the whole grid and 0.9 of a partition's slots
+    exceeds its live splats, so every budget must give the same forward
+    loss and tiles and the same step loss within 1e-6.  -> both kernels'
+    launches in the steps (counts set to 0 just before, read just after);
+    each must be > 0."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    g, cfg, grid = rec["g0"], rec["cfg"], rec["grid"]
+    Pn = g.means.shape[0]
+    gt_t, mask_t = dist_mod._tile_view_batches(rec["gts"], rec["masks"], grid)
+    vi = torch.arange(1, device=g.means.device)
+    opt = init_opt(g)
+    mesh_mod.init_distributed(device)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1, 1, 1), ("pod", "part", "model", "view"))
+        batch = dist_mod.gs_shard_batch(
+            {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+             "cam": select(rec["cams"], vi)}, mesh, 1, n_parts=Pn)
+        del gt_t, mask_t
+        impl, budget = dist_mod.resolve_assignment_global(
+            mesh, g, rec["cams"], grid, assign_impl=cfg.assign_impl,
+            assign_budget=cfg.assign_budget)
+        sched = cfg.tier_schedule()
+        dist_mod.probe_gs_schedule(sched, mesh, grid, g, batch["cam"], views=1,
+                                   assign_impl=impl, assign_budget=budget)
+        kw = dict(views=1, k_tiers=sched.k_tiers, tier_caps=sched.tier_caps,
+                  assign_impl=impl, assign_budget=budget, return_overflow=True)
+        out = {}
+        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        for sb in budgets:
+            c = dataclasses.replace(cfg, strip_budget=sb)
+            step = dist_mod.make_gs_train_step(mesh, c, grid, rec["extent"], **kw)
+            times = []
+            for _ in range(reps):
+                sync(device)
+                t0 = time.perf_counter()
+                _, _, loss, ov = step(g, opt, batch)
+                sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[sb] = {"step_loss": float(loss), "step_ms": times,
+                       "overflow": (int(ov["tiles"]), int(ov["assign"]))}
+        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        for sb in budgets:
+            fwd = dist_mod.make_gs_forward(
+                mesh, grid, K=cfg.assign_K, lambda_dssim=cfg.lambda_dssim,
+                strip_budget=sb, return_tiles=True, **kw)
+            with torch.no_grad():
+                loss, tiles, _ = fwd(g, batch["cam"], batch["gt_tiles"],
+                                     batch["mask_tiles"])
+            out[sb].update(loss=float(loss), tiles=tiles)
+        rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+    finally:
+        mesh_mod.destroy_distributed()
+    a, b = (out[sb] for sb in budgets)
+    tile_err = float((a["tiles"] - b["tiles"]).abs().max())
+    n = g.means.shape[1]
+    for sb in budgets:
+        kept = dist_mod.strip_rows(n, sb) if sb < 1.0 else n
+        log(f"mesh axes: {mesh}, strip_budget {sb} ({kept} of {n} rows "
+            f"kept): forward loss {out[sb]['loss']:.9f}, "
+            f"step loss {out[sb]['step_loss']:.9f}, overflow "
+            f"{out[sb]['overflow']}, step ms "
+            f"{[round(x, 3) for x in out[sb]['step_ms']]}")
+    log(f"mesh axes: schedule {sched}, assignment {impl} budget {budget}; "
+        f"max |tiles 1.0 - tiles {budgets[1]}| {tile_err:.3g}; launches in "
+        f"the steps {launches}")
+    if not (abs(a["loss"] - b["loss"]) <= 1e-6 and tile_err <= 1e-6
+            and abs(a["step_loss"] - b["step_loss"]) <= 1e-6):
+        raise AssertionError(f"strip_budget {budgets[1]} differs from 1.0")
+    if torch.device(device).type == "cuda" and not (
+        launches["bwd"] == launches["fwd"] > 0
+    ):
+        raise AssertionError(f"mesh axes launches {launches}")
+    return launches
 
 
 def main(argv=None):
@@ -1778,9 +1871,14 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
         # 8. the training CLI: the distributed trainer on a world-1 NCCL
-        # group (counts zeroed just before it), then 9. serving the merged
+        # group (counts zeroed just before it), then 10. serving the merged
         # checkpoints it wrote
-        roots, merged, cli_launches, cli_tiers = train_cli_phase(device, tmp, issue)
+        roots, merged, cli_launches, cli_tiers, cli_rec = train_cli_phase(
+            device, tmp, issue
+        )
+        # 9. the four-axis mesh and the strip prefilter on the CLI's state
+        axes_launches = mesh_axes_phase(cli_rec, device)
+        del cli_rec
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
@@ -1800,11 +1898,13 @@ def main(argv=None):
         f"launches on the main paths: serve fwd {serve_launches}; train fwd "
         f"{train_launches['fwd']} bwd {train_launches['bwd']}; resume fwd "
         f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; train CLI fwd "
-        f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; serve from "
+        f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; mesh axes fwd "
+        f"{axes_launches['fwd']} bwd {axes_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
+    fwd_launches += axes_launches["fwd"]
     fwd_launches += ckpt_serve_launches
     kernels = [
         {
@@ -1826,7 +1926,7 @@ def main(argv=None):
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
             "launches": train_launches["bwd"] + resume_launches["bwd"]
-            + cli_launches["bwd"],
+            + cli_launches["bwd"] + axes_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

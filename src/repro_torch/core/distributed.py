@@ -1,34 +1,43 @@
 """Distributed 3D-GS trainer over torch.distributed: the paper's
-"train every partition in parallel" on a ("part", "view") rank mesh.
+"train every partition in parallel" on a ("pod", "part", "model", "view")
+rank mesh (any subset holding "part", or its legacy alias "data").
 
 Port of ``repro.core.distributed``, its all-gather path.  The reference is
 one ``shard_map`` SPMD program; here every rank runs the same eager code
 on its shard and the collectives are explicit:
 
+  pod    one spatial partition (or several) per pod: the leading P of the
+         (P, N) state is split over "pod" and the pods train
+         independently; the only cross-pod traffic is the scalar loss
+         partials' psum and the overflow counters.
   part   gaussian-parallel: the (P, N) state is split over "part" along N.
          Each rank projects its own rows, builds the per-splat kernel table
          (features + aux) and all-gathers it over "part" (Grendel's
-         handoff: raw gaussians and optimizer state never move).  Every
-         "part" rank then rasterizes the whole tile grid of its views.
+         handoff: raw gaussians and optimizer state never move).
+  model  pixel-parallel: each rank assigns, rasterizes and takes the loss
+         of its own strip of T / n_model tiles of every partition it
+         holds (``strip_budget < 1`` first compacts the gathered table to
+         the splats whose y-span touches the strip).  The gaussians are
+         replicated along it.
   view   view-parallel: the view minibatch is split over "view"; each rank
          projects, gathers and rasterizes only its V / n_view views.  The
          loss is one scalar pmean over "view"; the gaussians are replicated
-         along it and their gradients are summed over it.
+         along it.
 
 The collectives are ``torch.autograd.Function``s whose backward is what
 JAX's shard_map transpose does (``_AllGather``: all-gather / reduce-
 scatter; ``_Psum``: psum / psum, and pmean = psum / n); the step
 seeds the replicated loss's cotangent with 1 / world (the transpose of a
-replicated output) and sums the gaussians' gradients over "view" (the
-transpose of an input replicated along it).  Every host-side decision
-(assignment budget, tier caps, overflow growth, densify) is made from
-all-reduced numbers, so every rank builds the same static shapes.
+replicated output) and sums the gaussians' gradients over ("model",
+"view") (the transpose of an input replicated along them).  Every
+host-side decision (assignment budget, tier caps, overflow growth,
+densify) is made from all-reduced numbers, so every rank builds the same
+static shapes.
 
-Not ported yet (each raises, naming its ROADMAP item): the "pod" and
-"model" axes, the sparse-overlap exchange (``exchange=True``,
-``ExchangeSchedule``, ``window_assignment``, ``rebalance_partitions``),
-``gather_mode="split"``, ``strip_budget < 1``, the bf16 wire tables and
-gradient compression.
+Not ported yet (each raises, naming its ROADMAP item): the sparse-overlap
+exchange (``exchange=True``, ``ExchangeSchedule``, ``window_assignment``,
+``rebalance_partitions``), ``gather_mode="split"``, the bf16 wire tables
+and gradient compression.
 """
 
 from __future__ import annotations
@@ -64,7 +73,6 @@ from repro_torch.runtime.checkpoint import tree_flatten, tree_map
 #: the ROADMAP queue 1 items that own what this slice leaves out
 ITEM_EXCHANGE = ("item 18 (the sparse-overlap exchange: ExchangeSchedule, "
                  "window_assignment, rebalance_partitions)")
-ITEM_AXES = "item 19 (the 'pod' and 'model' mesh axes, strip_budget)"
 ITEM_WIRE = ("item 12 (bf16 wire tables, gather_mode='split', "
              "optim/compress.py)")
 
@@ -83,25 +91,29 @@ class MeshAxes(NamedTuple):
 
 
 def _axes(mesh) -> MeshAxes:
-    """Map a mesh's axis names onto the roles: "part" (or the legacy
-    "data") is mandatory, "view" optional; "pod" and "model" are not
-    ported and raise."""
+    """Map a mesh's axis names onto the four roles: "part" (or the legacy
+    "data") is mandatory; "pod", "model" and "view" are optional.  Any
+    other axis name is an error."""
     names = mesh.axis_names
     data = "part" if "part" in names else ("data" if "data" in names else None)
     if data is None:
         raise ValueError(
             "mesh must carry a gaussian axis named 'part' (or legacy "
             f"'data'); got axes {names}")
-    for a in ("pod", "model"):
-        if a in names:
-            raise _missing(f"mesh axis {a!r}", ITEM_AXES)
-    ax = MeshAxes(pod=None, data=data, model=None,
+    ax = MeshAxes(pod="pod" if "pod" in names else None, data=data,
+                  model="model" if "model" in names else None,
                   view="view" if "view" in names else None)
-    extra = [n for n in names if n not in (data, ax.view)]
+    extra = [n for n in names if n not in ax]
     if extra:
         raise ValueError(f"unknown mesh axes {extra}; expected a subset of "
                          "('pod', 'part'|'data', 'model', 'view')")
     return ax
+
+
+def _tile_axes(ax: MeshAxes) -> tuple:
+    """The present axes the flat (P*T,) tile axis is cut over: (pod,
+    model)."""
+    return tuple(a for a in (ax.pod, ax.model) if a)
 
 
 def _size(mesh, axis: Optional[str]) -> int:
@@ -133,65 +145,111 @@ def _check_views(mesh, views: Optional[int]) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 
-def _row_slice(mesh, n: int) -> slice:
-    ax = _axes(mesh)
-    n_part = _size(mesh, ax.data)
-    if n % n_part:
-        raise ValueError(f"{n} gaussian slots do not divide over the "
-                         f"{n_part} '{ax.data}' shards")
-    nl = n // n_part
-    i = _index(mesh, ax.data)
+def _rows(mesh, axis: Optional[str], n: int, what: str) -> slice:
+    """This rank's contiguous 1 / size share of ``n`` items over ``axis``."""
+    k = _size(mesh, axis)
+    if n % k:
+        raise ValueError(f"{n} {what} do not divide over the {k} "
+                         f"'{axis}' shards")
+    nl = n // k
+    i = _index(mesh, axis)
     return slice(i * nl, (i + 1) * nl)
+
+
+def _strip(mesh, n_tiles: int):
+    """This rank's "model" strip of an ``n_tiles`` grid -> (t0, Tl): the
+    flat offset of its first tile (None: the strip is the whole grid) and
+    its tile count."""
+    model = _axes(mesh).model
+    n_model = _size(mesh, model)
+    if n_tiles % n_model:
+        raise ValueError(f"{n_tiles} tiles do not divide over the {n_model} "
+                         "'model' strips")
+    Tl = n_tiles // n_model
+    return (None if n_model == 1 else _index(mesh, model) * Tl), Tl
 
 
 def gs_shard_state(tree, mesh):
     """Cut a global (P, N) state tree (``Gaussians``, ``GSOptState`` or a
-    tuple of them) into this rank's rows: every leaf of rank >= 2 is split
-    along N over "part" (replicated along "view"); scalars (the Adam step)
-    are replicated.  The counterpart of ``gs_shardings`` /
-    ``gs_state_specs``."""
+    tuple of them) into this rank's block: every leaf of rank >= 2 is split
+    along P over "pod" and along N over "part" (replicated along "model"
+    and "view"); scalars (the Adam step) are replicated.  The counterpart
+    of ``gs_shardings`` / ``gs_state_specs``."""
+    ax = _axes(mesh)
+
     def cut(x):
         if not isinstance(x, torch.Tensor) or x.dim() < 2:
             return x
-        return x[:, _row_slice(mesh, x.shape[1])].contiguous()
+        return x[_rows(mesh, ax.pod, x.shape[0], "partitions"),
+                 _rows(mesh, ax.data, x.shape[1], "gaussian slots")
+                 ].contiguous()
     return tree_map(cut, tree)
 
 
-def gs_shard_batch(batch: dict, mesh, views: Optional[int] = None) -> dict:
-    """Cut a global batch -- gt_tiles (V, P*T, 3, th, tw), mask_tiles
-    (V, P*T, th, tw) and a cam with (V, 4, 4) views -- to this rank's
-    V / n_view views (``views=None``: an unbatched step, nothing to cut).
-    The counterpart of ``gs_batch_specs``."""
-    vloc = _check_views(mesh, views)
-    if vloc is None:
-        return batch
-    i = _index(mesh, _axes(mesh).view)
-    sl = slice(i * vloc, (i + 1) * vloc)
-    cam = batch["cam"]
-    return {"gt_tiles": batch["gt_tiles"][sl],
-            "mask_tiles": batch["mask_tiles"][sl],
-            "cam": cam._replace(view=cam.view[sl], fx=cam.fx[sl],
-                                fy=cam.fy[sl])}
-
-
-def _gather_rows(x, mesh):
-    group = mesh.group(_axes(mesh).data)
-    if dist.get_world_size(group) == 1:
+def _cut_tiles(x, mesh, n_parts: Optional[int], lead: int):
+    """(.., P*T, ...) flat tiles -> this rank's (.., Pl*Tl, ...): the
+    "model" strip of each of its "pod" partitions, partition-major (the
+    order the step renders them in).  The reference cuts the flat axis in
+    one contiguous chunk per device instead, which is the same block only
+    when each pod holds one partition."""
+    ax = _axes(mesh)
+    if _size(mesh, ax.pod) == 1 and _size(mesh, ax.model) == 1:
         return x
-    return _all_gather(x.contiguous(), group, 1)
+    if n_parts is None:
+        raise ValueError(f"a mesh with axes {_tile_axes(ax)} cuts the batch "
+                         "per partition: pass n_parts=P")
+    T = x.shape[lead] // n_parts
+    y = x.reshape(tuple(x.shape[:lead]) + (n_parts, T)
+                  + tuple(x.shape[lead + 1:]))
+    t0, Tl = _strip(mesh, T)
+    t0 = t0 or 0
+    y = y[(slice(None),) * lead + (_rows(mesh, ax.pod, n_parts, "partitions"),
+                                   slice(t0, t0 + Tl))]
+    return y.reshape(tuple(x.shape[:lead]) + (-1,)
+                     + tuple(x.shape[lead + 1:])).contiguous()
+
+
+def gs_shard_batch(batch: dict, mesh, views: Optional[int] = None, *,
+                   n_parts: Optional[int] = None) -> dict:
+    """Cut a global batch -- gt_tiles (V, P*T, 3, th, tw), mask_tiles
+    (V, P*T, th, tw) and a cam with (V, 4, 4) views; without the V axis
+    for ``views=None`` -- to this rank's V / n_view views and, over "pod"
+    and "model", to its partitions' tile strips (``n_parts`` = P, needed
+    when either axis has more than one rank).  The counterpart of
+    ``gs_batch_specs``."""
+    vloc = _check_views(mesh, views)
+    out = dict(batch)
+    if vloc is not None:
+        i = _index(mesh, _axes(mesh).view)
+        sl = slice(i * vloc, (i + 1) * vloc)
+        cam = batch["cam"]
+        out = {"gt_tiles": batch["gt_tiles"][sl],
+               "mask_tiles": batch["mask_tiles"][sl],
+               "cam": cam._replace(view=cam.view[sl], fx=cam.fx[sl],
+                                   fy=cam.fy[sl])}
+    lead = 0 if vloc is None else 1
+    for k in ("gt_tiles", "mask_tiles"):
+        out[k] = _cut_tiles(out[k], mesh, n_parts, lead)
+    return out
 
 
 def gather_partitions(tree, mesh):
-    """The inverse of ``gs_shard_state``: all-gather every (P, Nl, ...)
-    leaf over "part" into the global (P, N, ...) tree (every rank gets it).
-    Used for checkpoints, densify and the CLI's merge.  Leaves of a bool
-    dtype travel as uint8."""
+    """The inverse of ``gs_shard_state``: all-gather every (Pl, Nl, ...)
+    leaf over "part" (N) and "pod" (P) into the global (P, N, ...) tree
+    (every rank gets it).  Used for checkpoints, densify and the CLI's
+    merge.  Leaves of a bool dtype travel as uint8."""
+    ax = _axes(mesh)
+    part, pod = mesh.group(ax.data), mesh.group(ax.pod)
+
     def gather(x):
         if not isinstance(x, torch.Tensor) or x.dim() < 2:
             return x
-        if x.dtype == torch.bool:
-            return _gather_rows(x.to(torch.uint8), mesh).to(torch.bool)
-        return _gather_rows(x, mesh)
+        y = x.to(torch.uint8) if x.dtype == torch.bool else x
+        if part is not None:
+            y = _all_gather(y, part, 1)
+        if pod is not None:
+            y = _all_gather(y, pod, 0)
+        return y.to(torch.bool) if x.dtype == torch.bool else y
     with torch.no_grad():
         return tree_map(gather, tree)
 
@@ -267,6 +325,18 @@ class _Psum(torch.autograd.Function):
         return _all_reduce(g, dist.ReduceOp.SUM, ctx.group), None
 
 
+def _psum(x, group):
+    """Differentiable psum over ``group`` (None: one rank, the identity)."""
+    return x if group is None else _Psum.apply(x, group)
+
+
+def _gather(x, group, dim: int):
+    """Differentiable tiled all-gather over ``group`` along ``dim`` (None:
+    one rank, the identity)."""
+    return x if group is None else _AllGather.apply(x.contiguous(), group,
+                                                    dim)
+
+
 def _world_max(values, device):
     """Element-wise MAX over every rank of a list of ints."""
     t = torch.tensor([int(v) for v in values], dtype=torch.int64,
@@ -282,6 +352,7 @@ def _world_max(values, device):
 def _assign_tiles_local(mean2d, radius, depth, valid, lo, hi, *, K: int,
                         block: int, impl: str = "dense",
                         grid: Optional[TileGrid] = None,
+                        t0: Optional[int] = None,
                         tile_budget: Optional[int] = None):
     """Top-K front-most splats for this rank's tile window.
 
@@ -292,8 +363,9 @@ def _assign_tiles_local(mean2d, radius, depth, valid, lo, hi, *, K: int,
     single-device dispatcher does; both impls share the two-key (score
     desc, splat index asc) order, so they are bit-identical whenever the
     sorted budget covers the scene.  The sorted path takes the traced
-    budget rule (a missing budget is DEFAULT_TILE_BUDGET) and, with no
-    "model" axis, the window is the whole grid."""
+    budget rule (a missing budget is DEFAULT_TILE_BUDGET) and ``t0``, the
+    flat offset of the window in the full ``grid`` (None: the window is
+    the whole grid)."""
     Pl, N = mean2d.shape[:2]
     dev = mean2d.device
     if grid is not None:
@@ -302,7 +374,7 @@ def _assign_tiles_local(mean2d, radius, depth, valid, lo, hi, *, K: int,
     if impl == "sorted":
         outs = [sorted_assign_window(
             mean2d[p, :, 0], mean2d[p, :, 1], radius[p], valid[p], depth[p],
-            grid, K=K, n_local=Tl, tile_budget=tile_budget,
+            grid, K=K, t0=t0, n_local=Tl, tile_budget=tile_budget,
             exact_budget=False) for p in range(Pl)]
         idx, score, ov = zip(*outs)
         return (torch.stack(idx), torch.stack(score),
@@ -354,15 +426,42 @@ def _project_rows(g: Gaussians, cam: Camera, views: bool) -> Splats2D:
                       for fs in zip(*per)))
 
 
-def _check_forward_opts(gather_mode, strip_budget, exchange, dtype_policy):
+def _check_forward_opts(gather_mode, exchange, dtype_policy):
     if exchange:
         raise _missing("exchange=True", ITEM_EXCHANGE)
     if gather_mode != "f32":
         raise _missing(f"gather_mode={gather_mode!r}", ITEM_WIRE)
-    if strip_budget != 1.0:
-        raise _missing(f"strip_budget={strip_budget!r}", ITEM_AXES)
     if dtype_policy != "f32":
         raise _missing(f"dtype_policy={dtype_policy!r}", ITEM_WIRE)
+
+
+def strip_rows(n_rows: int, strip_budget: float) -> int:
+    """Rows of the strip prefilter's compacted table: ``n_rows *
+    strip_budget`` truncated, then rounded up to a multiple of 128."""
+    return -(-int(n_rows * strip_budget) // 128) * 128
+
+
+def _strip_candidates(my, radius, valid, ylo, yhi, n_keep: int):
+    """The strip prefilter's row choice: my/radius/valid (R, N) -> (R,
+    n_keep) int64 rows of the splats whose circle's y-span touches [ylo,
+    yhi], in their original order, filled with N past the last one (and
+    cut at n_keep: the budget must cover the strip's splats)."""
+    R, N = my.shape
+    touch = valid & (my + radius >= ylo) & (my - radius <= yhi)
+    pos = torch.cumsum(touch, dim=1) - 1
+    slot = torch.where(touch & (pos < n_keep), pos, n_keep)
+    cand = torch.full((R, n_keep + 1), N, dtype=torch.int64, device=my.device)
+    cand.scatter_(1, slot, torch.arange(N, device=my.device).expand(R, N))
+    return cand[:, :n_keep]
+
+
+def _take_rows(x, cand):
+    """x (R, N, C) -> (R, M, C) rows ``cand`` (R, M), rows == N filled with
+    0.  Differentiable: the gradient scatters back to the rows taken, and
+    the fill rows' gradient lands on a pad row that is dropped."""
+    pad = torch.cat([x, x.new_zeros((x.shape[0], 1) + tuple(x.shape[2:]))], 1)
+    return torch.gather(pad, 1, cand[..., None].expand(
+        tuple(cand.shape) + tuple(x.shape[2:])))
 
 
 def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
@@ -381,28 +480,36 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
     dict with ``return_overflow``), differentiable w.r.t. the rank's
     gaussian rows.
 
-    g is this rank's (Pl, Nl) shard; cam / gt (P*T, 3, th, tw) / mask
-    (P*T, th, tw) its part of the batch -- with ``views=V`` they carry a
+    g is this rank's (Pl, Nl) shard; cam / gt (Pl*Tl, 3, th, tw) / mask
+    (Pl*Tl, th, tw) its part of the batch -- with ``views=V`` they carry a
     leading V / n_view axis (``gs_shard_batch``).  Steps, as the
     reference's all-gather path: project locally, build the
     ``splat_features`` + (radius, depth, valid) tables, all-gather them
     over "part", fold the local views into the partition axis, assign the
-    top-K per tile over the whole grid, rasterize (one launch at K, or one
-    per occupancy tier with ``k_tiers`` at its static ``tier_caps``; None =
+    top-K per tile of this rank's "model" strip (``strip_budget < 1``:
+    first keep the ``strip_rows(N, strip_budget)`` first splats whose
+    y-span touches the strip, in their order, so the (score, index)
+    tie-break is unchanged), rasterize (one launch at K, or one per
+    occupancy tier with ``k_tiers`` at its static ``tier_caps``; None =
     the always-exact full-domain caps), and reduce the masked L1 + per-tile
-    D-SSIM partials: summed over "part", the per-view losses averaged
-    over the local views and then over "view".
+    D-SSIM partials: summed over ("pod", "part", "model"), the per-view
+    losses averaged over the local views and then over "view".
 
     The overflow dict holds () int32 counters: ``"tiles"`` (tiered tiles
     dropped past the caps) and ``"assign"`` (sorted-assignment candidates
-    dropped past ``assign_budget``), summed over "view", and
-    ``"exchange"`` (always 0 on this path)."""
-    _check_forward_opts(gather_mode, strip_budget, exchange, dtype_policy)
+    dropped past ``assign_budget``), summed over ("pod", "model", "view"),
+    and ``"exchange"`` (always 0 on this path)."""
+    _check_forward_opts(gather_mode, exchange, dtype_policy)
     ax = _axes(mesh)
     vloc = _check_views(mesh, views)
     part_group = mesh.group(ax.data)
-    view_group = mesh.group(ax.view) if ax.view else None
-    T = grid.n_tiles
+    loss_group = mesh.group(ax.pod, ax.data, ax.model)
+    view_group = mesh.group(ax.view)
+    # every "part" rank holds a redundant copy of its window: the counters
+    # sum over the other axes only
+    count_group = mesh.group(ax.pod, ax.model, ax.view)
+    n_view = _size(mesh, ax.view)
+    t0, Tl = _strip(mesh, grid.n_tiles)
     if k_tiers is not None:
         k_tiers = tuple(int(k) for k in k_tiers)
         K = k_tiers[-1]                  # assignment depth = largest tier
@@ -412,6 +519,9 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
         assign_block = max(1024, 4096 // vloc) if views else 4096
     dev = mesh.device
     lo, hi = tile_bounds(grid, dev)
+    if t0 is not None:
+        lo, hi = lo[t0:t0 + Tl], hi[t0:t0 + Tl]
+    ylo, yhi = lo[:, 1].min(), hi[:, 1].max()
     nax = 2 if views else 1
 
     def fwd(g: Gaussians, cam: Camera, gt, mask):
@@ -419,20 +529,27 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
         feat_l = splat_features(splats)                      # (.., Nl, 16)
         aux_l = torch.stack([splats.radius, splats.depth,
                              splats.valid.to(torch.float32)], -1).detach()
-        feat = _AllGather.apply(feat_l.contiguous(), part_group, nax)
+        feat = _gather(feat_l, part_group, nax)
         with torch.no_grad():
-            aux = _all_gather(aux_l, part_group, nax)
+            aux = _gather(aux_l, part_group, nax)
         if views:
             # fold the local view axis into the partition axis
             feat = feat.reshape((-1,) + tuple(feat.shape[2:]))
             aux = aux.reshape((-1,) + tuple(aux.shape[2:]))
+        if strip_budget < 1.0:
+            with torch.no_grad():
+                cand = _strip_candidates(
+                    feat[..., 1].detach(), aux[..., 0], aux[..., 2] > 0.5,
+                    ylo, yhi, strip_rows(feat.shape[1], strip_budget))
+                aux = _take_rows(aux, cand)
+            feat = _take_rows(feat, cand)
         with torch.no_grad():
             mean_g = feat[..., 0:2].detach()
             idx, score, assign_ov = _assign_tiles_local(
                 mean_g, aux[..., 0], aux[..., 1], aux[..., 2] > 0.5, lo, hi,
-                K=K, block=assign_block, impl=assign_impl, grid=grid,
+                K=K, block=assign_block, impl=assign_impl, grid=grid, t0=t0,
                 tile_budget=assign_budget)
-            live = score > NEG / 2                           # (Pl, T, K)
+            live = score > NEG / 2                           # (Pl, Tl, K)
         Pl = feat.shape[0]
 
         def features_for(p_rows, idx_rows, live_rows):
@@ -441,13 +558,13 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
             return torch.cat([feat_t[..., :8], alpha[..., None],
                               feat_t[..., 9:]], -1)
 
-        origins = lo.repeat(Pl, 1)                           # (Pl*T, 2)
+        origins = lo.repeat(Pl, 1)                           # (Pl*Tl, 2)
         if k_tiers is not None:
-            M = Pl * T
-            idx_f = idx.reshape(M, K)
-            live_f = live.reshape(M, K)
+            n_flat = Pl * Tl
+            idx_f = idx.reshape(n_flat, K)
+            live_f = live.reshape(n_flat, K)
             caps = tier_caps if tier_caps is not None \
-                else (M,) * len(k_tiers)
+                else (n_flat,) * len(k_tiers)
             with torch.no_grad():
                 plan = bin_tiles_by_occupancy(
                     live_f.sum(-1).to(torch.int32), k_tiers, caps)
@@ -456,26 +573,27 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
             pad = origins.new_zeros((1, 2))
             origins_p = torch.cat([origins, pad])
             for k, ids in zip(k_tiers, plan.tile_ids):
-                safe = torch.clamp(ids, max=M - 1).long()
-                live_rows = live_f[safe, :k] & (ids < M)[:, None]
+                safe = torch.clamp(ids, max=n_flat - 1).long()
+                live_rows = live_f[safe, :k] & (ids < n_flat)[:, None]
                 tier_feats.append(features_for(
-                    torch.div(safe, T, rounding_mode="floor"),
+                    torch.div(safe, Tl, rounding_mode="floor"),
                     idx_f[safe, :k], live_rows))
-                tier_origins.append(origins_p[torch.clamp(ids, max=M).long()])
+                tier_origins.append(
+                    origins_p[torch.clamp(ids, max=n_flat).long()])
             tiles = rasterize_tiles_tiered(
-                tier_feats, tier_origins, plan.tile_ids, M,
+                tier_feats, tier_origins, plan.tile_ids, n_flat,
                 tile_h=grid.tile_h, tile_w=grid.tile_w, impl=impl)
         else:
             p_rows = torch.arange(Pl, dtype=torch.int32,
-                                  device=dev)[:, None].expand(Pl, T)
-            tile_feat = features_for(p_rows, idx, live)      # (Pl, T, K, F)
-            tiles = rasterize_tiles(tile_feat.reshape(Pl * T, K, FEAT_DIM),
+                                  device=dev)[:, None].expand(Pl, Tl)
+            tile_feat = features_for(p_rows, idx, live)     # (Pl, Tl, K, F)
+            tiles = rasterize_tiles(tile_feat.reshape(Pl * Tl, K, FEAT_DIM),
                                     origins, tile_h=grid.tile_h,
                                     tile_w=grid.tile_w, impl=impl)
             overflow_l = torch.zeros((), dtype=torch.int32, device=dev)
 
-        # masked loss partials, summed over "part"; the view axis adds one
-        # scalar pmean at the end
+        # masked loss partials, summed over (pod, part, model); the view
+        # axis adds one scalar pmean at the end
         if views:
             pred_v = tiles[:, :3].reshape((vloc, -1, 3) + tuple(
                 tiles.shape[2:]))
@@ -484,14 +602,11 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
                 for v in range(vloc)], -1)                   # (4, Vl)
         else:
             parts = _loss_partials(tiles[:, :3], gt, mask, win_size=win_size)
-        l1n, l1d, sn, sd = _Psum.apply(parts, part_group)
+        l1n, l1d, sn, sd = _psum(parts, loss_group)
         loss = ((1 - lambda_dssim) * l1n / torch.clamp(l1d, min=1.0)
                 + lambda_dssim * (1.0 - sn / torch.clamp(sd, min=1.0)) / 2.0)
         if views:
-            loss = loss.mean()
-            if view_group is not None:
-                loss = _Psum.apply(loss, view_group) / dist.get_world_size(
-                    view_group)
+            loss = _psum(loss.mean(), view_group) / n_view
         if not (return_tiles or return_overflow):
             return loss
         outs = (loss,)
@@ -500,13 +615,11 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
                 tiles = tiles.reshape((vloc, -1) + tuple(tiles.shape[1:]))
             outs += (tiles,)
         if return_overflow:
-            # every "part" rank holds a redundant copy of the window: the
-            # counters sum over "view" only
             with torch.no_grad():
                 cnt = torch.stack([overflow_l.to(torch.int64),
                                    assign_ov.to(torch.int64)])
-                if view_group is not None:
-                    cnt = _all_reduce(cnt, dist.ReduceOp.SUM, view_group)
+                if count_group is not None:
+                    cnt = _all_reduce(cnt, dist.ReduceOp.SUM, count_group)
             zero = torch.zeros((), dtype=torch.int32, device=dev)
             outs += ({"tiles": cnt[0].to(torch.int32),
                       "assign": cnt[1].to(torch.int32), "exchange": zero},)
@@ -530,12 +643,14 @@ def make_gs_probe(mesh, grid: TileGrid, *, k_tiers,
     (tier_counts (n_tiers,) int64, max_occ)``, identical on every rank.
 
     Runs the forward's project -> table all-gather -> view fold ->
-    assignment at the ladder's Kmax, counts tiles per desired tier over
-    this rank's FOLDED (Vl * P * T,) binning domain -- the domain the
-    tiered forward bins -- and all-reduces (counts, max occupancy) with
-    MAX over the world, so every rank feeds ``TierSchedule.probe_counts``
-    the same numbers and builds the same static shapes.  ``k_tiers`` must
-    be the schedule's FULL ladder."""
+    assignment over this rank's "model" strip at the ladder's Kmax, counts
+    tiles per desired tier over this rank's FOLDED (Vl * Pl * Tl,) binning
+    domain -- the domain the tiered forward bins -- and all-reduces
+    (counts, max occupancy) with MAX over the world, so every rank feeds
+    ``TierSchedule.probe_counts`` the same numbers and builds the same
+    static shapes.  ``k_tiers`` must be the schedule's FULL ladder.  The
+    probe ignores ``strip_budget``: the exact table's occupancy bounds
+    every budgeted variant's."""
     if exchange:
         raise _missing("exchange=True", ITEM_EXCHANGE)
     ax = _axes(mesh)
@@ -545,7 +660,10 @@ def make_gs_probe(mesh, grid: TileGrid, *, k_tiers,
     if assign_block is None:
         assign_block = max(1024, 4096 // vloc) if views else 4096
     part_group = mesh.group(ax.data)
+    t0, Tl = _strip(mesh, grid.n_tiles)
     lo, hi = tile_bounds(grid, mesh.device)
+    if t0 is not None:
+        lo, hi = lo[t0:t0 + Tl], hi[t0:t0 + Tl]
     nax = 2 if views else 1
 
     @torch.no_grad()
@@ -555,13 +673,13 @@ def make_gs_probe(mesh, grid: TileGrid, *, k_tiers,
             [splats.mean2d[..., 0], splats.mean2d[..., 1],
              torch.where(splats.valid, splats.radius, 0.0), splats.depth],
             -1)
-        aux = _all_gather(aux_l, part_group, nax)
+        aux = _gather(aux_l, part_group, nax)
         if views:
             aux = aux.reshape((-1,) + tuple(aux.shape[2:]))
         radius = aux[..., 2]
         _, score, _ = _assign_tiles_local(
             aux[..., 0:2], radius, aux[..., 3], radius > 0, lo, hi, K=K,
-            block=assign_block, impl=assign_impl, grid=grid,
+            block=assign_block, impl=assign_impl, grid=grid, t0=t0,
             tile_budget=assign_budget)
         occ = tile_occupancy(score).reshape(-1)
         tiers = tile_tiers(occ, ladder)
@@ -577,12 +695,14 @@ def folded_tile_count(mesh, grid: TileGrid, n_parts: int,
                       views: Optional[int] = None,
                       exchange: bool = False) -> int:
     """Per-rank flat tile count of the distributed binning domain,
-    ``Vl * P * T`` -- the cap clamp / ``note_overflow`` ``n_tiles``."""
+    ``Vl * Pl * Tl`` with Pl = P / n_pod and Tl = T / n_model -- the cap
+    clamp / ``note_overflow`` ``n_tiles``.  ``n_parts`` is the GLOBAL P."""
     if exchange:
         raise _missing("exchange=True", ITEM_EXCHANGE)
     ax = _axes(mesh)
     vloc = views // _size(mesh, ax.view) if views else 1
-    return vloc * n_parts * grid.n_tiles
+    return (vloc * (n_parts // _size(mesh, ax.pod))
+            * (grid.n_tiles // _size(mesh, ax.model)))
 
 
 def probe_gs_schedule(sched: TierSchedule, mesh, grid: TileGrid,
@@ -592,8 +712,9 @@ def probe_gs_schedule(sched: TierSchedule, mesh, grid: TileGrid,
                       exchange: bool = False):
     """Probe ``sched`` against the mesh and update it host-side via
     ``probe_counts`` -> the new ``(k_tiers, tier_caps)``, identical on
-    every rank.  ``cam`` is this rank's part of one view batch or a list of
-    them (counts max-merged: the caps cover the worst probed batch)."""
+    every rank.  ``g`` is this rank's (Pl, Nl) shard; ``cam`` is this
+    rank's part of one view batch or a list of them (counts max-merged:
+    the caps cover the worst probed batch)."""
     probe_fn = make_gs_probe(mesh, grid, k_tiers=tuple(sched.ladder),
                              views=views, assign_impl=assign_impl,
                              assign_budget=assign_budget, exchange=exchange)
@@ -604,9 +725,10 @@ def probe_gs_schedule(sched: TierSchedule, mesh, grid: TileGrid,
         counts = c if counts is None else [max(a, b)
                                            for a, b in zip(counts, c)]
         max_occ = max(max_occ, m)
+    n_parts = g.means.shape[0] * _size(mesh, _axes(mesh).pod)
     return sched.probe_counts(
         counts, max_occ,
-        n_tiles=folded_tile_count(mesh, grid, g.means.shape[0], views))
+        n_tiles=folded_tile_count(mesh, grid, n_parts, views))
 
 
 def resolve_assignment_global(mesh, g: Gaussians, cams: Camera,
@@ -665,7 +787,8 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
     if cfg.grad_compress != "none":
         raise _missing(f"grad_compress={cfg.grad_compress!r}", ITEM_WIRE)
     ax = _axes(mesh)
-    view_group = mesh.group(ax.view) if ax.view else None
+    # the gaussians are replicated along "model" and "view"
+    rep_group = mesh.group(ax.model, ax.view)
     lrs = group_lrs(cfg, extent)
     fwd = make_gs_forward(mesh, grid, K=cfg.assign_K, impl=impl,
                           lambda_dssim=cfg.lambda_dssim,
@@ -693,11 +816,11 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
         grads = {k: torch.zeros_like(tr[k]) if gr is None else gr
                  for k, gr in zip(names, got)}
         with torch.no_grad():
-            if view_group is not None:
-                # the gaussians are replicated along "view": sum their
-                # gradients over it (one flat all-reduce)
+            if rep_group is not None:
+                # sum the replicated gaussians' gradients over ("model",
+                # "view") (one flat all-reduce)
                 flat = torch.cat([grads[k].reshape(-1) for k in names])
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=view_group)
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=rep_group)
                 off = 0
                 for k in names:
                     n = grads[k].numel()
@@ -790,13 +913,16 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     ``generator`` (a ``torch.Generator`` on the mesh's device, default
     seeded 0, the same on every rank; one (max_new', 3) draw per partition
     per event) or from ``densify_noise`` (one (P, max_new', 3) entry per
-    densify event of the whole run).  Then each rank keeps its rows.
+    densify event of the whole run).  Then each rank keeps its (pod,
+    part) block.
 
     Checkpoints hold the GLOBAL (P, N) (g, opt) tree with the TierSchedule
     state in ``extra["schedule"]`` -- the reference's ``fit_partitions``
     layout, restorable at any world size: rank 0 writes after a gather,
     every rank restores and cuts its rows; a resume skips the initial
-    probe and fast-forwards the split noise.  ``warm_start=(tree, extra,
+    probe (unless ``extra["tile_split"]``, the writer's ("pod", "model",
+    "view") sizes, differs from this mesh's: its caps fit other tile
+    domains) and fast-forwards the split noise.  ``warm_start=(tree, extra,
     step)`` is the same resume from a host (g, opt) tree.
     ``rebalance_every``, ``exchange_schedule`` and the exchange /
     compression knobs raise (not ported)."""
@@ -824,8 +950,20 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         if densify_cap is not None else cfg
     rank0 = dist.get_rank() == 0
 
-    gt_tiles, mask_tiles = _tile_view_batches(gts, masks, grid)
+    # this rank's partitions' tile strips of every view
+    gt_tiles, mask_tiles = (_cut_tiles(x, mesh, Pn, 1)
+                            for x in _tile_view_batches(gts, masks, grid))
     opt = init_opt(g)
+
+    # how the ranks split the tile domain ("pod", "model", "view"): the
+    # caps a checkpoint carries fit the split it was written under
+    split = [_size(mesh, a) for a in (ax.pod, ax.model, ax.view)]
+
+    def load_schedule(extra):
+        if sched is not None and extra.get("schedule"):
+            sched.load_state(extra["schedule"])
+            if extra.get("tile_split", [1, 1, 1]) != split:
+                sched.tier_caps = None       # re-probe on this mesh
 
     start, losses = 0, []
     if ckpt is not None:
@@ -833,8 +971,7 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         if latest is not None:
             _check_resume_policy(ckpt.manifest_extra(latest), cfg)
             (g, opt), extra = ckpt.restore(latest, (g, opt), device=dev)
-            if sched is not None and extra.get("schedule"):
-                sched.load_state(extra["schedule"])
+            load_schedule(extra)
             start = latest
     if start == 0 and warm_start is not None:
         wtree, wextra, wstep = warm_start
@@ -842,8 +979,7 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         _check_resume_policy(wextra, cfg)
         g, opt = tree_map(lambda x: torch.as_tensor(np.asarray(as_numpy(x)))
                           .to(dev), (wtree[0], wtree[1]))
-        if sched is not None and wextra.get("schedule"):
-            sched.load_state(wextra["schedule"])
+        load_schedule(wextra)
         start = wstep
 
     def densify_at(i):
@@ -907,7 +1043,8 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                              else None,
                              "exchange": None,
                              "dtype_policy": cfg.dtype_policy,
-                             "grad_compress": cfg.grad_compress})
+                             "grad_compress": cfg.grad_compress,
+                             "tile_split": split})
         dist.barrier()
 
     def densify(gg, oo):

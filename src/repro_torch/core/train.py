@@ -41,7 +41,6 @@ from repro_torch.core.tiling import (DEFAULT_TILE_BUDGET, TierSchedule,
 _MISSING_KNOBS = {
     "coarse": (None, "item 5 (the coarse superblock pre-cull)"),
     "gather_mode": ("f32", "item 12 (bf16 wire tables, gather_mode)"),
-    "strip_budget": (1.0, "item 19 (the 'model' axis strips)"),
     "exchange": (False, "item 18 (the sparse-overlap exchange)"),
     "exchange_budget": (None, "item 18 (the sparse-overlap exchange)"),
     "grad_compress": ("none", "item 12 (optim/compress.py)"),
@@ -88,7 +87,8 @@ class GSTrainCfg:
     prune_opacity: float = 0.005
     prune_scale: float = 0.5        # x extent: prune absurdly large splats
     split_shrink: float = 1.6
-    # options of the distributed step (not ported yet)
+    # options of the distributed step (all but strip_budget not ported
+    # yet)
     gather_mode: str = "f32"
     strip_budget: float = 1.0
     exchange: bool = False

@@ -1,4 +1,4 @@
-"""Process groups and the ("part", "view") trainer mesh over torch.distributed.
+"""Process groups and the trainer's rank meshes over torch.distributed.
 
 Counterpart of ``repro.launch.mesh`` for the distributed GS trainer.  JAX
 builds one SPMD program over a device mesh; here every rank is one process
@@ -9,10 +9,15 @@ collectives run over:
         under ``torchrun`` (RANK / WORLD_SIZE / LOCAL_RANK set) through
         ``env://``; otherwise a world of one, in-process.  Backend ``nccl``
         on ``cuda`` (device ``cuda:LOCAL_RANK``), ``gloo`` on ``cpu``.
-    make_mesh((p, v), ("part", "view"))   the rank grid, row-major as
-        ``jax.make_mesh`` lays devices out: rank r sits at part r // v,
-        view r % v.  Each axis has one sub-group per coordinate of the
-        other axis; ``Mesh.group(axis)`` is the one this rank belongs to.
+    make_mesh(shape, axes)   the rank grid over any of the axes
+        ("pod", "part" | "data", "model", "view"), row-major as
+        ``jax.make_mesh`` lays devices out: on a (p, v) ("part", "view")
+        mesh rank r sits at part r // v, view r % v.  A collective over a
+        set of axes runs among the ranks that share every other
+        coordinate; ``Mesh.group(*axes)`` is this rank's such group.
+    make_production_mesh(multi_pod=)   the reference's production shapes,
+        (16, 16) ("data", "model") or (2, 16, 16) ("pod", "data", "model");
+        ``single_device_mesh()`` its (1, 1) ("data", "model").
 
 No fallback: a failed NCCL init raises, and a backend that does not match
 the device raises.  Every group gets a ``timeout``, so a rank that takes
@@ -102,12 +107,13 @@ def destroy_distributed():
 
 
 class Mesh:
-    """The rank grid of a ``(p, v)`` ("part", "view") mesh.
+    """A rank grid.
 
     ``axis_names``/``shape`` as ``jax.sharding.Mesh`` gives them; ``index``
-    is this rank's coordinate on an axis, ``group`` the sub-group of the
-    ranks that share every other coordinate (the group a collective over
-    that axis runs in)."""
+    is this rank's coordinate on an axis, ``group(*axes)`` the sub-group of
+    the ranks that share every coordinate outside ``axes`` (the group a
+    collective over those axes runs in).  Axes given as None are skipped;
+    a group of one rank is None (a collective over it is the identity)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  rank: int, coords: Sequence[int], device: torch.device,
@@ -129,8 +135,14 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords[self.axis_names.index(axis)]
 
-    def group(self, axis: str):
-        return self._groups[axis]
+    def group(self, *axes: Optional[str]):
+        names = [a for a in axes if a is not None]
+        unknown = [a for a in names if a not in self.axis_names]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not on mesh "
+                             f"{self.axis_names}")
+        return self._groups.get(_group_key(self.shape, self.axis_names,
+                                           names))
 
     @property
     def backend(self) -> str:
@@ -141,11 +153,19 @@ class Mesh:
                 f"rank={self.rank} at {self.coords}, {self.device})")
 
 
+def _group_key(shape, axis_names, axes) -> tuple:
+    """The axes of ``axes`` that have more than one rank, in mesh order:
+    subsets with the same key have the same groups."""
+    return tuple(a for a, s in zip(axis_names, shape) if a in axes and s > 1)
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               timeout_s: Optional[float] = None) -> Mesh:
     """The mesh of the default process group, which must have
-    ``prod(shape)`` ranks.  Every rank creates every sub-group, in the same
-    order (``torch.distributed.new_group`` is collective)."""
+    ``prod(shape)`` ranks.  Every rank creates the groups of every subset of
+    the axes with more than one rank, eagerly and in one fixed order
+    (``torch.distributed.new_group`` is collective: a group made later on
+    some ranks only would hang the next collective)."""
     if not dist.is_initialized():
         raise RuntimeError("call init_distributed(...) before make_mesh")
     shape = tuple(int(s) for s in shape)
@@ -157,25 +177,45 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if n != world:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
                          f"ranks; the process group has {world}")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"repeated mesh axes {axes}")
     rank = dist.get_rank()
-    strides = [1] * len(shape)
-    for i in range(len(shape) - 2, -1, -1):
-        strides[i] = strides[i + 1] * shape[i + 1]
-    coords = [(rank // strides[i]) % shape[i] for i in range(len(shape))]
+    # row-major: every rank's coordinates
+    grid = list(itertools.product(*(range(s) for s in shape)))
+    wide = [a for a, s in zip(axes, shape) if s > 1]
     groups = {}
-    for a, axis in enumerate(axes):
-        # every line of ranks along ``axis``: fix the other coordinates
-        others = [range(s) if i != a else range(1)
-                  for i, s in enumerate(shape)]
-        for base in itertools.product(*others):
-            line = [sum(c * st for c, st in zip(base, strides))
-                    + j * strides[a] for j in range(shape[a])]
-            grp = dist.group.WORLD if len(line) == world else \
-                dist.new_group(line, timeout=_timeout(timeout_s))
-            if rank in line:
-                groups[axis] = grp
-    return Mesh(shape, axes, rank=rank, coords=coords,
+    for size in range(1, len(wide) + 1):
+        # in mesh order: each subset is its own ``_group_key``
+        for subset in itertools.combinations(wide, size):
+            inside = [i for i, a in enumerate(axes) if a in subset]
+            # the ranks that share every coordinate outside ``subset``
+            lines = {}
+            for r, c in enumerate(grid):
+                outside = tuple(x for i, x in enumerate(c) if i not in inside)
+                lines.setdefault(outside, []).append(r)
+            for outside in sorted(lines):
+                line = lines[outside]
+                grp = dist.group.WORLD if len(line) == world else \
+                    dist.new_group(line, timeout=_timeout(timeout_s))
+                if rank in line:
+                    groups[subset] = grp
+    return Mesh(shape, axes, rank=rank, coords=grid[rank],
                 device=_default_device(), groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         timeout_s: Optional[float] = None) -> Mesh:
+    """The reference's production mesh: (16, 16) ("data", "model"), or
+    (2, 16, 16) ("pod", "data", "model") with ``multi_pod``; the process
+    group must have 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, timeout_s=timeout_s)
+
+
+def single_device_mesh(*, timeout_s: Optional[float] = None) -> Mesh:
+    """The reference's (1, 1) ("data", "model") mesh of a world of one."""
+    return make_mesh((1, 1), ("data", "model"), timeout_s=timeout_s)
 
 
 def _default_device() -> torch.device:

@@ -31,6 +31,7 @@ import math
 import os
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -92,20 +93,8 @@ def run_gs(args):
             args.ckpt_every = 2
 
     cfg = GSTrainCfg(view_batch=args.view_batch or 1)
-    ds = get_gs_dataset(args.dataset, "full" if args.full else "cpu")
-    n_views = args.views or ds.n_views
-    points, colors, extent = build_scene(ds, args.seed)
-    center = 0.5 * (points.max(0) + points.min(0))
-    radius = 1.6 * extent / 2 + 1e-3
-    W = H = args.resolution
-    grid = TileGrid(W, H, cfg.tile_h, cfg.tile_w)
-    cams = orbital_rig(n_views, center, radius, width=W, height=H,
-                       device=dev)
-
-    ghost_w = ds.ghost_frac * extent if not args.no_ghost else 0.0
-    parts, _ = partition_points(points, colors, args.parts,
-                                ghost_width=ghost_w)
-
+    n_views = args.views or get_gs_dataset(
+        args.dataset, "full" if args.full else "cpu").n_views
     if args.mesh:
         p, v = (int(x) for x in args.mesh.lower().split("x"))
         if p * v != world:
@@ -118,27 +107,11 @@ def run_gs(args):
         v = math.gcd(max(1, min(cfg.view_batch, n_views)), world)
         p = world // v
     mesh = mesh_mod.make_mesh((p, v), ("part", "view"))
-
-    base = max(len(pd.points) for pd in parts)
-    cap = int(base * ds.capacity_factor) if args.densify_every else base
-    cap = -(-cap // p) * p          # "part"-shardable capacity
-    g = _stack([init_partition_gaussians(pd, capacity=cap, device=dev)
-                for pd in parts])
-
-    # per-partition GT renders of own (+ghost) data and coverage masks, at
-    # bg=0: the distributed tile loss compares raw premultiplied color
-    # tiles (no background composite)
-    gts, masks = [], []
-    for pd in parts:
-        part_gt, part_cov = render_views(
-            gt_gaussians(pd.points, pd.colors, device=dev), cams, grid,
-            K=cfg.K, bg=0.0)
-        gts.append(part_gt)
-        if not args.no_mask:
-            masks.append(coverage_masks(part_cov))
-        del part_cov
-    gts = torch.stack(gts)
-    masks = None if args.no_mask else torch.stack(masks)
+    sc = gs_scene(args, cfg, p, dev)
+    parts, points, colors, extent = sc.parts, sc.points, sc.colors, sc.extent
+    center, radius, grid, cams = sc.center, sc.radius, sc.grid, sc.cams
+    g, gts, masks = sc.g, sc.gts, sc.masks
+    del sc
 
     kt = cfg.resolved_k_tiers()
     say(f"[train-gs] dataset={args.dataset} parts={args.parts} "
@@ -189,6 +162,48 @@ def run_gs(args):
     return 0
 
 
+def gs_scene(args, cfg: GSTrainCfg, n_part: int, dev):
+    """The CLI's training inputs from its flags (``--dataset``, ``--full``,
+    ``--seed``, ``--parts``, ``--resolution``, ``--views``,
+    ``--no-ghost``, ``--no-mask``, ``--densify-every``): the isosurface
+    scene, its partitions with ghost cells, the orbital rig, the batched
+    (P, N) initial gaussians (capacity x the dataset's factor when
+    densifying, a multiple of ``n_part``) and each partition's GT renders
+    and coverage masks at bg = 0 (the distributed tile loss compares raw
+    premultiplied color tiles) -> a namespace of them."""
+    ds = get_gs_dataset(args.dataset, "full" if args.full else "cpu")
+    n_views = args.views or ds.n_views
+    points, colors, extent = build_scene(ds, args.seed)
+    center = 0.5 * (points.max(0) + points.min(0))
+    radius = 1.6 * extent / 2 + 1e-3
+    W = H = args.resolution
+    grid = TileGrid(W, H, cfg.tile_h, cfg.tile_w)
+    cams = orbital_rig(n_views, center, radius, width=W, height=H,
+                       device=dev)
+    ghost_w = ds.ghost_frac * extent if not args.no_ghost else 0.0
+    parts, _ = partition_points(points, colors, args.parts,
+                                ghost_width=ghost_w)
+    base = max(len(pd.points) for pd in parts)
+    cap = int(base * ds.capacity_factor) if args.densify_every else base
+    cap = -(-cap // n_part) * n_part          # "part"-shardable capacity
+    g = _stack([init_partition_gaussians(pd, capacity=cap, device=dev)
+                for pd in parts])
+    gts, masks = [], []
+    for pd in parts:
+        part_gt, part_cov = render_views(
+            gt_gaussians(pd.points, pd.colors, device=dev), cams, grid,
+            K=cfg.K, bg=0.0)
+        gts.append(part_gt)
+        if not args.no_mask:
+            masks.append(coverage_masks(part_cov))
+        del part_cov
+    return types.SimpleNamespace(
+        parts=parts, points=points, colors=colors, extent=extent,
+        center=center, radius=radius, grid=grid, cams=cams, g=g,
+        gts=torch.stack(gts),
+        masks=None if args.no_mask else torch.stack(masks))
+
+
 def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
                    center, radius, extent, n_views, done, dev):
     """Rank 0: per-partition checkpoints, merge, render, metrics, the merged
@@ -235,7 +250,8 @@ def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
           f"saved under {args.ckpt_dir}", flush=True)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags (the reference's, with ``--device``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--gs", action="store_true")
     ap.add_argument("--smoke", action="store_true",
@@ -279,7 +295,11 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-compress", default="none",
                     choices=["none", "bf16", "int8"])
     ap.add_argument("--timeseries", action="store_true")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     defaults = {"exchange": False, "exchange_budget": None,
                 "rebalance_every": 0, "dtype_policy": "f32",
                 "grad_compress": "none", "timeseries": False}

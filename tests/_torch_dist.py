@@ -1,6 +1,7 @@
-"""Run a function on gloo ranks of a ("part", "view") mesh, each rank its own
-spawned process (torch only: the ranks never import JAX); with
-``device="cuda"`` the ranks run NCCL, rank r on card r.
+"""Run a function on gloo ranks of a mesh (default ("part", "view"); any
+axes with ``axes=``), each rank its own spawned process (torch only: the
+ranks never import JAX); with ``device="cuda"`` the ranks run NCCL, rank r
+on card r.
 
 ``run_ranks(fn, shape, tmp_path, *args)`` starts ``prod(shape)`` processes
 (``Ranks`` starts them without waiting);
@@ -27,7 +28,7 @@ import torch.multiprocessing as mp
 PG_TIMEOUT_S = 60.0
 
 
-def _entry(rank, world, shape, init_file, module, name, args, err_dir,
+def _entry(rank, world, shape, axes, init_file, module, name, args, err_dir,
            device):
     try:
         import torch
@@ -40,8 +41,7 @@ def _entry(rank, world, shape, init_file, module, name, args, err_dir,
             dev, init_method=f"file://{init_file}", rank=rank,
             world_size=world, timeout_s=PG_TIMEOUT_S)
         try:
-            mesh = mesh_mod.make_mesh(shape, ("part", "view"),
-                                      timeout_s=PG_TIMEOUT_S)
+            mesh = mesh_mod.make_mesh(shape, axes, timeout_s=PG_TIMEOUT_S)
             fn = getattr(importlib.import_module(module), name)
             fn(mesh, *args)
         finally:
@@ -53,24 +53,25 @@ def _entry(rank, world, shape, init_file, module, name, args, err_dir,
 
 
 class Ranks:
-    """Spawned ranks running ``fn(mesh, *args)`` on a ``shape`` mesh (gloo,
-    or NCCL with ``device="cuda"``); ``join()`` waits for them (killing all
-    past the deadline) and raises if any rank failed."""
+    """Spawned ranks running ``fn(mesh, *args)`` on a ``shape`` mesh over
+    ``axes`` (gloo, or NCCL with ``device="cuda"``); ``join()`` waits for
+    them (killing all past the deadline) and raises if any rank failed."""
 
     def __init__(self, fn, shape, tmp_path, *args, timeout: float = 120.0,
-                 device: str = "cpu"):
+                 device: str = "cpu", axes=("part", "view")):
         self.shape = tuple(shape)
         self.world = 1
         for s in self.shape:
             self.world *= s
         tag = "x".join(map(str, self.shape)) + f"_{time.monotonic_ns()}"
+        axes = tuple(axes)
         init_file = os.path.join(str(tmp_path), f"pg_{tag}")
         self.err_dir = os.path.join(str(tmp_path), f"err_{tag}")
         os.makedirs(self.err_dir, exist_ok=True)
         ctx = mp.get_context("spawn")
         self.procs = [ctx.Process(target=_entry, args=(
-            r, self.world, self.shape, init_file, fn.__module__, fn.__name__,
-            args, self.err_dir, device), daemon=True)
+            r, self.world, self.shape, axes, init_file, fn.__module__,
+            fn.__name__, args, self.err_dir, device), daemon=True)
             for r in range(self.world)]
         old = os.environ.get("PYTHONPATH")
         os.environ["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
@@ -112,7 +113,8 @@ class Ranks:
 
 
 def run_ranks(fn, shape, tmp_path, *args, timeout: float = 120.0,
-              device: str = "cpu"):
-    """Run ``fn(mesh, *args)`` on every rank of a ``shape`` mesh and wait
-    for them."""
-    Ranks(fn, shape, tmp_path, *args, timeout=timeout, device=device).join()
+              device: str = "cpu", axes=("part", "view")):
+    """Run ``fn(mesh, *args)`` on every rank of a ``shape`` mesh over
+    ``axes`` and wait for them."""
+    Ranks(fn, shape, tmp_path, *args, timeout=timeout, device=device,
+          axes=axes).join()

@@ -12,11 +12,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import distributed as D
-from repro_torch.core.cameras import Camera
+from repro_torch.core.cameras import Camera, select
 from repro_torch.core.gaussians import Gaussians
 from repro_torch.core.tiling import TileGrid
 from repro_torch.core.train import GSTrainCfg, init_opt
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.runtime.checkpoint import CheckpointManager
+
+from _torch_dist import PG_TIMEOUT_S
 
 FIELDS = ("means", "log_scales", "quats", "opacity_logit", "colors")
 
@@ -188,6 +191,160 @@ def card_fit_rank(mesh, out_dir, tag, steps):
         g1, o1 = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
                           else x, (g1, o1))
         save_tree(os.path.join(out_dir, f"{tag}.npz"), g1, o1, losses)
+
+
+#: the forward variants ``axes_rank`` runs: (name, views, options); views
+#: None is the unbatched step on view 0 (meshes without a "view" axis)
+FWD_VARIANTS = (
+    ("dense", 2, {}),
+    ("strip", 2, dict(strip_budget=127 / 128)),
+    ("sorted", 2, dict(strip_budget=127 / 128, k_tiers=(4, 8, 16),
+                       assign_impl="sorted")),
+    ("single", None, {}),
+)
+
+
+def axes_rank(mesh, scene_path, out_dir, meshes):
+    """On each mesh of ``meshes`` [(tag, shape, axes)], built on this
+    world: every forward variant of FWD_VARIANTS (K = 16, return_tiles) and
+    one train step (the trainer's tiered default, two views) from the
+    scene's state.  Every rank saves its coordinates, its groups' ranks,
+    its losses, tiles and overflow counters; rank 0 the gathered state."""
+    g, cams, gts, masks, grid, meta = load_scene(scene_path)
+    Pn = g.means.shape[0]
+    gt_t, mask_t = D._tile_view_batches(gts, masks, grid)
+    vi = torch.arange(2)
+    batches = {2: {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+                   "cam": select(cams, vi)},
+               None: {"gt_tiles": gt_t[0], "mask_tiles": mask_t[0],
+                      "cam": select(cams, 0)}}
+    rank = dist.get_rank()
+    for tag, shape, axes in meshes:
+        m = mesh_mod.make_mesh(shape, axes, timeout_s=PG_TIMEOUT_S)
+        ax = D._axes(m)
+        out = {"coords": np.asarray(m.coords)}
+        for sub in ((ax.pod, ax.data, ax.model), (ax.pod, ax.model, ax.view),
+                    (ax.model, ax.view), (ax.pod,), (ax.data,)):
+            grp = m.group(*sub)
+            key = "+".join(a for a in sub if a)
+            out[f"group_{key}"] = np.asarray(
+                [rank] if grp is None else dist.get_process_group_ranks(grp))
+        gl = D.gs_shard_state(g, m)
+        for name, views, kw in FWD_VARIANTS:
+            if views is None and ax.view is not None:
+                continue
+            b = D.gs_shard_batch(batches[views], m, views, n_parts=Pn)
+            fwd = D.make_gs_forward(m, grid, K=16, impl="ref", views=views,
+                                    return_tiles=True, return_overflow=True,
+                                    **kw)
+            loss, tiles, ov = fwd(gl, b["cam"], b["gt_tiles"],
+                                  b["mask_tiles"])
+            out[f"{name}_loss"] = np.asarray(float(loss), np.float64)
+            out[f"{name}_tiles"] = tiles.detach().numpy()
+            out[f"{name}_overflow"] = np.asarray([int(ov["tiles"]),
+                                                  int(ov["assign"])])
+        cfg = GSTrainCfg(K=16, view_batch=2)
+        step = D.make_gs_train_step(m, cfg, grid, meta["extent"], impl="ref",
+                                    views=2, return_overflow=True)
+        gs, opt0 = D.gs_shard_state((g, init_opt(g)), m)
+        g1, o1, loss, ov = step(gs, opt0, D.gs_shard_batch(batches[2], m, 2,
+                                                          n_parts=Pn))
+        out["step_loss"] = np.asarray(float(loss), np.float64)
+        out["step_overflow"] = np.asarray([int(ov["tiles"]),
+                                           int(ov["assign"])])
+        g1, o1 = D.gather_partitions((g1, o1), m)
+        np.savez(os.path.join(out_dir, f"{tag}_rank{rank}.npz"), **out)
+        if rank == 0:
+            save_tree(os.path.join(out_dir, f"{tag}_state.npz"), g1, o1)
+
+
+def production_mesh_rank(mesh, out_path):
+    """The reference's production meshes on this world: each raises unless
+    the world has its 256 / 512 ranks; on a world of one
+    ``single_device_mesh`` resolves ("data", "model").  Rank 0 writes what
+    it saw."""
+    seen = {}
+    for multi_pod in (False, True):
+        try:
+            mesh_mod.make_production_mesh(multi_pod=multi_pod)
+        except ValueError as e:
+            seen[f"multi_pod={multi_pod}"] = str(e)
+    if dist.get_world_size() == 1:
+        m = mesh_mod.single_device_mesh()
+        seen["single"] = [list(m.axis_names), list(m.shape),
+                          list(D._axes(m))]
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(seen, f)
+
+
+def card_scene(path, views):
+    """The CLI's full-size inputs on this process's card (``launch.train``'s
+    ``gs_scene``: the 4M-point kingsnake scene, 2 partitions with ghost
+    cells, 1024x1024, ``views`` orbital views, capacity x 1.3), saved to
+    ``path`` on the host -> the scene's extent."""
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args([
+        "--gs", "--dataset", "kingsnake", "--full", "--parts", "2",
+        "--resolution", "1024", "--views", str(views), "--densify-every",
+        "3"])
+    sc = train.gs_scene(args, GSTrainCfg(), 1, torch.device("cuda", 0))
+    cpu = lambda x: x.cpu()  # noqa: E731
+    torch.save({"g": {k: cpu(v) for k, v in sc.g._asdict().items()},
+                "cam": [cpu(sc.cams.view), cpu(sc.cams.fx), cpu(sc.cams.fy),
+                        sc.cams.width, sc.cams.height],
+                "gts": cpu(sc.gts), "masks": cpu(sc.masks),
+                "grid": list(sc.grid), "extent": float(sc.extent)}, path)
+    return float(sc.extent)
+
+
+def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw):
+    """``fit_partitions`` of a ``card_scene`` on this rank's card with the
+    CLI's cfg: every rank saves its losses, each step's wall ms and both
+    kernels' launches; rank 0 the gathered trained state."""
+    import time
+
+    from repro_torch.kernels import rasterize
+
+    dev = mesh.device
+    z = torch.load(scene_path, map_location=dev)
+    g = Gaussians(**z["g"])
+    cams = Camera(*z["cam"])
+    times = []
+    real = D.make_gs_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(*sa):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = step(*sa)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    fwd, bwd = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+    D.make_gs_train_step = make
+    try:
+        g1, _, losses = D.fit_partitions(
+            g, cams, z["gts"], z["masks"], GSTrainCfg(), mesh=mesh,
+            extent=z["extent"], grid=TileGrid(*z["grid"]), **fit_kw)
+    finally:
+        D.make_gs_train_step = real
+    launches = [rasterize.LAUNCHES - fwd, rasterize.BWD_LAUNCHES - bwd]
+    g1 = D.gather_partitions(g1, mesh)
+    rank = dist.get_rank()
+    np.savez(os.path.join(out_dir, f"{tag}_rank{rank}.npz"),
+             losses=np.asarray(losses, np.float64),
+             step_ms=np.asarray(times), launches=np.asarray(launches))
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"{tag}.npz"),
+                 **{k: v.cpu().numpy() for k, v in g1._asdict().items()})
 
 
 def jobs_rank(mesh, jobs):

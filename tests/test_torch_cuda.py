@@ -452,3 +452,70 @@ def test_cuda_fit_partitions_nccl_2x2_matches_world_one(cuda, tmp_path):
     for k, lr in lrs.items():
         assert dev[k].max() <= 2 * steps * lr, (k, dev[k].max())
         assert np.quantile(dev[k], 0.99) <= 1e-4, k
+
+
+def test_cuda_pod_meshes_match_world_one(cuda, tmp_path):
+    """The two full-size kingsnake partitions of the training CLI (2 x
+    2.88M slots, 1024x1024, 8x16 tiles, K = 64, the auto tier ladder, 4
+    views, one a step) trained one partition per pod: ``fit_partitions``
+    on a ("pod", "part", "model") 2x1x1 NCCL mesh of two cards and on a
+    2x1x2 mesh of four (each card half the tiles of its partition),
+    against the world-1 batched run on one card, 8 steps with densify
+    events after steps 4 and 8 (the same seeded split noise everywhere).  Held as
+    the 2x2 case above holds its runs: both kernels launch on every step
+    of every rank, every rank reports the same losses, within 1e-3
+    relative of the one-card run's; the same live splats and owners; each
+    trained field within 2 * steps * its learning rate and 99% of its
+    components within 1e-4.  ``-s`` prints the cards' name and power limit
+    and each mesh's step ms."""
+    import subprocess
+
+    import _torch_dist
+    import _torch_dist_ranks as ranks
+    from repro_torch.core.train import GSTrainCfg, group_lrs
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a 2x1x2 NCCL mesh)")
+    rasterize.build()        # once, before the ranks load it
+    scene = str(tmp_path / "scene.pt")
+    extent = ranks.card_scene(scene, views=4)
+    torch.cuda.empty_cache()
+    steps = 8
+    fit = dict(steps=steps, densify_every=4, densify_from=0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    meshes = (("one", (1, 1, 1)), ("pod", (2, 1, 1)), ("podmodel", (2, 1, 2)))
+    for tag, shape in meshes:
+        _torch_dist.run_ranks(ranks.card_pod_rank, shape, tmp_path, scene,
+                              str(tmp_path), tag, fit, timeout=600.0,
+                              device="cuda", axes=("pod", "part", "model"))
+    want = np.load(tmp_path / "one.npz")
+    lrs = group_lrs(GSTrainCfg(), extent)
+    for tag, shape in meshes:
+        recs = [np.load(tmp_path / f"{tag}_rank{r}.npz")
+                for r in range(int(np.prod(shape)))]
+        for r, z in enumerate(recs):
+            np.testing.assert_array_equal(z["losses"], recs[0]["losses"])
+            fwd, bwd = z["launches"]
+            assert fwd == bwd >= steps, (tag, r, fwd, bwd)
+        ms = recs[0]["step_ms"]
+        print(f"{tag} {shape}: losses {recs[0]['losses'].tolist()}, step ms "
+              f"{np.round(ms, 3).tolist()} (median of steps 2-{steps} "
+              f"{np.median(ms[1:]):.3f}), launches per rank "
+              f"{[z['launches'].tolist() for z in recs]}")
+        if tag == "one":
+            continue
+        got = np.load(tmp_path / f"{tag}.npz")
+        assert len(recs[0]["losses"]) == steps
+        np.testing.assert_allclose(recs[0]["losses"],
+                                   np.load(tmp_path / "one_rank0.npz")
+                                   ["losses"], rtol=1e-3, atol=0)
+        for k in ("active", "owner"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        dev = {k: np.abs(got[k] - want[k]) for k in lrs}
+        print(f"{tag} vs one card, per field (max, 99th percentile) "
+              f"{ {k: (d.max(), np.quantile(d, 0.99)) for k, d in dev.items()} }")
+        for k, lr in lrs.items():
+            assert dev[k].max() <= 2 * steps * lr, (tag, k, dev[k].max())
+            assert np.quantile(dev[k], 0.99) <= 1e-4, (tag, k)

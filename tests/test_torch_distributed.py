@@ -574,25 +574,57 @@ def test_reference_checkpoint_resumes_on_two_ranks(runs):
 
 
 # ---------------------------------------------------------------------------
-# what this slice leaves out raises, naming its ROADMAP item
+# what the port leaves out raises, naming its ROADMAP item; item 19's axes
+# and strip_budget are ported
 # ---------------------------------------------------------------------------
 
 
 class _FakeMesh:
+    """A mesh of one rank (every group None: no collective runs)."""
+
+    device = torch.device("cpu")
+
     def __init__(self, names, shape):
         self.axis_names, self.shape = tuple(names), tuple(shape)
 
     def axis_size(self, a):
         return dict(zip(self.axis_names, self.shape)).get(a, 1)
 
+    def index(self, a):
+        return 0
+
+    def group(self, *axes):
+        return None
+
 
 @pytest.mark.parametrize("axis,item", [("pod", "item 19"),
                                        ("model", "item 19")])
 def test_unported_axes_raise(axis, item):
-    with pytest.raises(NotImplementedError, match=item):
-        D._axes(_FakeMesh(("part", axis), (1, 1)))
+    """Item 19 ported the "pod" and "model" axes: ``_axes`` resolves each,
+    and no refusal names the item any more; a mesh without a gaussian axis
+    still raises."""
+    ax = D._axes(_FakeMesh(("part", axis), (1, 1)))
+    assert getattr(ax, axis) == axis and ax.data == "part"
+    assert item not in D.ITEM_EXCHANGE + D.ITEM_WIRE
     with pytest.raises(ValueError):
         D._axes(_FakeMesh(("view",), (1,)))
+
+
+def _one_rank_tiles(mesh, **kw):
+    """The forward's tiles on one rank, two partitions of this module's
+    scene (the reference's tables through the bridge), two views."""
+    pts, cols = point_cloud_for("sphere_shell", N)
+    g = host(from_points(jnp.asarray(pts[:N]), jnp.asarray(cols[:N]),
+                         opacity=0.8))
+    g = gaussians_from_numpy({k: np.stack([v, v[::-1]]) for k, v in
+                              g._asdict().items()}, device="cpu")
+    cams = t_orbital_rig(2, CENTER, 1.6, width=RES, height=RES, device="cpu")
+    T = TileGrid(*GRID).n_tiles
+    gt = torch.full((2, 2 * T, 3, 8, 16), 0.5)
+    mask = torch.ones((2, 2 * T, 8, 16), dtype=torch.bool)
+    fwd = D.make_gs_forward(mesh, TileGrid(*GRID), K=16, impl="ref",
+                            views=2, return_tiles=True, **kw)
+    return fwd(g, cams, gt, mask)
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -601,7 +633,21 @@ def test_unported_axes_raise(axis, item):
     (dict(strip_budget=0.5), "item 19"),
     (dict(dtype_policy="bf16"), "item 12")])
 def test_unported_forward_options_raise(kw, item):
-    mesh = _FakeMesh(("part", "view"), (1, 1))
+    """Items 18 and 12 still raise; item 19's ``strip_budget`` is accepted,
+    and at 127/128 (N = 256: every slot kept) the forward equals the
+    unfiltered one at 1e-6."""
+    mesh = _FakeMesh(("pod", "part", "model"), (1, 1, 1))
+    if item == "item 19":
+        loss, tiles = _one_rank_tiles(mesh)
+        loss_s, tiles_s = _one_rank_tiles(mesh, strip_budget=127 / 128)
+        np.testing.assert_allclose(tiles_s, tiles, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(float(loss_s), float(loss), rtol=1e-6,
+                                   atol=1e-6)
+        assert D.strip_rows(N, 127 / 128) == N
+        # 0.5 keeps 128 of the 256 rows: accepted, not exact
+        assert D.strip_rows(N, kw["strip_budget"]) == 128
+        assert torch.isfinite(_one_rank_tiles(mesh, **kw)[1]).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
         D.make_gs_forward(mesh, TileGrid(*GRID), K=16, **kw)
 
@@ -611,6 +657,11 @@ def test_unported_forward_options_raise(kw, item):
     (dict(strip_budget=0.5), "item 19"),
     (dict(grad_compress="int8"), "item 12")])
 def test_train_cfg_knobs_name_their_item(kw, item):
+    """Items 18 and 12 still raise; item 19's ``strip_budget`` is a
+    setting."""
+    if item == "item 19":
+        assert ttr.GSTrainCfg(**kw).strip_budget == kw["strip_budget"]
+        return
     with pytest.raises(NotImplementedError, match=item):
         ttr.GSTrainCfg(**kw)
 
