@@ -88,6 +88,23 @@ Phases (any failure propagates and the script exits nonzero):
              agree within 1e-6 (at n_model = 1 the strip is the whole grid
              and 0.9 of the 2.88M slots exceeds the 2.22M live splats), and
              both kernels launch in the steps.
+9b. wire    the distributed step's wire options on the same world-1 mesh,
+             state, view and probed schedule as phase 9: three chained
+             ``make_gs_train_step`` steps from the initial state for each of
+             six variants -- f32 tables (the baseline), ``dtype_policy=
+             "bf16"``, ``gather_mode="split"``, split + bf16,
+             ``grad_compress="bf16"`` and ``grad_compress="int8"`` (the
+             residual carried across the steps) -- and each variant's
+             forward on the initial state.  Printed: each variant's step ms
+             (median), the wire bytes a splat of each table layout (from the
+             tables' own dtypes and widths), the forward loss and the tile
+             gap (max, mean) against f32, the int8 residual's max.  Gates:
+             every loss finite, both kernels launched in every variant's
+             steps, the compress variants' forward loss equal to f32's
+             within 1e-7 (compression comes after the forward), split's mean
+             tile gap <= 2e-3 (its max reported beside the reference's
+             5e-2); the bf16 policy, which rounds the splat centres
+             themselves, is reported only.
 10. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
    ckpt      (16 views, max_batch 8, two passes): the repeat pass all hits,
@@ -142,6 +159,7 @@ from repro_torch.core.cameras import select, stack  # noqa: E402
 from repro_torch.core.gaussians import from_points  # noqa: E402
 from repro_torch.core.projection import project  # noqa: E402
 from repro_torch.core.masking import gs_loss  # noqa: E402
+from repro_torch.core.dtypes import cast_tables  # noqa: E402
 from repro_torch.core.pipeline import PipelineCfg  # noqa: E402
 from repro_torch.core.render import _assign_views  # noqa: E402
 from repro_torch.core.render import rasterize_tiles_tiered  # noqa: E402
@@ -1120,24 +1138,18 @@ def train_breakdown_phase(rec):
     return stages
 
 
-def train_profile_phase(rec, steps=3, top=12):
-    """Device time by kernel name over ``steps`` train steps on partition
-    0's step-0 inputs (``torch.profiler``, device activity only, after one
-    warm-up step), and the share of the window's wall time in which the
-    device ran anything -> (rows, busy share, window ms per step)."""
-    g, cam, grid, _, caps, assign = step_inputs(rec)
-    cfg, gt0, mask0 = rec["cfg"], rec["gt0"], rec["mask0"]
-    dev = cam.view.device
-    step = train_mod.make_train_step(cfg, grid, rec["extent"], tier_caps=caps, **assign)
-    opt = init_opt(g)
-    step(g, opt, cam, gt0, mask0)
+def device_profile(fn, steps, dev):
+    """``fn()`` run ``steps`` times under ``torch.profiler`` (device activity
+    only) -> (rows [(kernel name, (calls, us))] by device time, the share of
+    the window's wall time in which the device ran anything, the window's
+    wall us, the device event count)."""
     sync(dev)
     act = torch.profiler.ProfilerActivity
     on_card = dev.type == "cuda"
     with torch.profiler.profile(activities=[act.CUDA if on_card else act.CPU]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(g, opt, cam, gt0, mask0)
+            fn()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     kind = torch.autograd.DeviceType.CUDA if on_card else torch.autograd.DeviceType.CPU
@@ -1153,11 +1165,26 @@ def train_profile_phase(rec, steps=3, top=12):
         busy += max(0.0, end - max(start, reach))  # union of the intervals
         reach = max(reach, end)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    share = busy / wall_us
+    return rows, busy / wall_us, wall_us, len(spans)
+
+
+def train_profile_phase(rec, steps=3, top=12):
+    """Device time by kernel name over ``steps`` train steps on partition
+    0's step-0 inputs (``torch.profiler``, device activity only, after one
+    warm-up step), and the share of the window's wall time in which the
+    device ran anything -> (rows, busy share, window ms per step)."""
+    g, cam, grid, _, caps, assign = step_inputs(rec)
+    cfg, gt0, mask0 = rec["cfg"], rec["gt0"], rec["mask0"]
+    dev = cam.view.device
+    step = train_mod.make_train_step(cfg, grid, rec["extent"], tier_caps=caps, **assign)
+    opt = init_opt(g)
+    step(g, opt, cam, gt0, mask0)
+    rows, share, wall_us, n_spans = device_profile(
+        lambda: step(g, opt, cam, gt0, mask0), steps, dev)
     log(
         f"profile of {steps} train steps: {wall_us / steps / 1e3:.3f} ms per step "
         f"(traced), device busy {100 * share:.1f}% of the window, "
-        f"{len(spans)} device events, {len(rows)} names"
+        f"{n_spans} device events, {len(rows)} names"
     )
     for name, (n, t) in rows[:top]:
         log(f"  {t / steps / 1e3:8.3f} ms/step  x{n // steps:<4d} {name[:90]}")
@@ -1773,6 +1800,222 @@ def mesh_axes_phase(rec, device, *, budgets=(1.0, 0.9), reps=3):
     return launches
 
 
+#: the wire phase's variants: (name, cfg fields)
+WIRE_VARIANTS = (
+    ("f32", {}),
+    ("bf16", dict(dtype_policy="bf16")),
+    ("split", dict(gather_mode="split")),
+    ("split+bf16", dict(gather_mode="split", dtype_policy="bf16")),
+    ("compress bf16", dict(grad_compress="bf16")),
+    ("compress int8", dict(grad_compress="int8")),
+)
+
+
+def plain_compress(grads, mode):
+    """The reference's quantise -> dequantise of ``optim/compress.py`` from
+    a zero residual, written out plainly: "bf16" rounds through bfloat16;
+    "int8" scales each whole tensor by max(max |g|, 1e-12) / 127, rounds
+    half to even, clips to [-127, 127] -> (dequantised, residual)."""
+    if mode == "bf16":
+        return {k: g.to(torch.bfloat16).to(torch.float32)
+                for k, g in grads.items()}, None
+    deq, res = {}, {}
+    for k, g in grads.items():
+        scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+        q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+        deq[k] = q.to(torch.float32) * scale
+        res[k] = g - deq[k]
+    return deq, res
+
+
+def check_compressed_step(mode, seen, m_c, m_f32, b1):
+    """The first compressed step of ``mode`` from the initial state: its
+    summed gradients are the f32 step's (from its first Adam moments m =
+    (1 - b1) grad, within 1e-3 of their largest, the card gate of PERF.md
+    section 2), ``compress_grads`` turned them into ``plain_compress`` of
+    them and its residual, bit for bit, and Adam took exactly those (m ==
+    (1 - b1) * compressed)."""
+    grads, got, err = seen
+    want, want_err = plain_compress(grads, mode)
+    gap, flips = 0.0, 0
+    for k, g in grads.items():
+        ref = m_f32[k]
+        gap = max(gap, float(((1 - b1) * g - ref).abs().max()
+                             / max(float(ref.abs().max()), 1e-30)))
+        flips += int((got[k] != want[k]).sum())
+        if want_err is not None:
+            flips += int((err[k] != want_err[k]).sum())
+        flips += int((m_c[k] != (1 - b1) * got[k]).sum())
+    log(f"wire compress {mode}: first step's gradients vs the f32 step's "
+        f"{gap:.4g} of the largest (gate 1e-3); compressed gradients, "
+        f"residual and Adam moments vs plain_compress: {flips} differ")
+    if not gap <= 1e-3 or flips:
+        raise AssertionError(f"wire compress {mode}: gradient gap {gap}, "
+                             f"{flips} entries differ from plain_compress")
+
+
+def wire_phase(rec, device, *, steps=3):
+    """The distributed step's wire options on a world-1 ("pod", "part",
+    "model", "view") mesh (NCCL on the card): the CLI's initial state, its
+    cfg and 8x16 grid, view 0, the schedule probed on views 0 and 1 as
+    ``fit_partitions`` probes a one-view batch.  For each of WIRE_VARIANTS,
+    ``steps`` chained train steps from the initial state (both kernels'
+    counts set to 0 just before and read just after; each variant must
+    launch both, bwd == fwd >= steps) and the forward on the initial state
+    (its launches not counted).  -> the steps' launches.  Checked: every
+    loss finite, the compress variants' forward loss within 1e-7 of f32's,
+    split's mean tile gap against f32 <= 2e-3, and each compress
+    variant's first step (``check_compressed_step``)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    g, cfg, grid = rec["g0"], rec["cfg"], rec["grid"]
+    Pn = g.means.shape[0]
+    gt_t, mask_t = dist_mod._tile_view_batches(rec["gts"], rec["masks"], grid)
+    vi = torch.arange(1, device=g.means.device)
+    on_card = torch.device(device).type == "cuda"
+    mesh_mod.init_distributed(device)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1, 1, 1), ("pod", "part", "model", "view"))
+        batch = dist_mod.gs_shard_batch(
+            {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+             "cam": select(rec["cams"], vi)}, mesh, 1, n_parts=Pn)
+        del gt_t, mask_t
+        impl, budget = dist_mod.resolve_assignment_global(
+            mesh, g, rec["cams"], grid, assign_impl=cfg.assign_impl,
+            assign_budget=cfg.assign_budget)
+        sched = cfg.tier_schedule()
+        probe = [select(rec["cams"], torch.tensor([v], device=vi.device))
+                 for v in (0, 1)]
+        dist_mod.probe_gs_schedule(sched, mesh, grid, g, probe, views=1,
+                                   assign_impl=impl, assign_budget=budget)
+        kw = dict(views=1, k_tiers=sched.k_tiers, tier_caps=sched.tier_caps,
+                  assign_impl=impl, assign_budget=budget, return_overflow=True)
+        out = {}
+        total = {"fwd": 0, "bwd": 0}
+        # each variant's first-step Adam first moments, and each compress
+        # mode's first call: (summed gradients in, compressed out)
+        first_m, seen = {}, {}
+        real_compress = dist_mod.compress_grads
+
+        def spy(grads, mode, err=None, **kw):
+            res = real_compress(grads, mode, err, **kw)
+            if mode not in seen:
+                seen[mode] = ({k: v.clone() for k, v in grads.items()},
+                              res[0], res[1])
+            return res
+
+        with patched(dist_mod, "compress_grads", spy):
+            for name, opts in WIRE_VARIANTS:
+                c = dataclasses.replace(cfg, **opts)
+                step = dist_mod.make_gs_train_step(mesh, c, grid, rec["extent"], **kw)
+                gg, oo = g, init_opt(g)
+                err = dist_mod.zero_err(g, c.grad_compress)
+                times, losses = [], []
+                rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+                for _ in range(steps):
+                    sync(device)
+                    t0 = time.perf_counter()
+                    if c.grad_compress == "none":
+                        gg, oo, loss, ov = step(gg, oo, batch)
+                    else:
+                        gg, oo, err, loss, ov = step(gg, oo, err, batch)
+                    sync(device)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(loss))
+                    if len(losses) == 1 and name.startswith(("f32", "compress")):
+                        first_m[name] = {k: m.clone() for k, m in oo.m.items()}
+                launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+                for k in total:
+                    total[k] += launches[k]
+                del gg, oo
+                fwd = dist_mod.make_gs_forward(
+                    mesh, grid, K=cfg.assign_K, lambda_dssim=cfg.lambda_dssim,
+                    return_tiles=True, gather_mode=c.gather_mode,
+                    dtype_policy=c.dtype_policy, **kw)
+                counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+                with torch.no_grad():
+                    floss, tiles, _ = fwd(g, batch["cam"], batch["gt_tiles"],
+                                          batch["mask_tiles"])
+                rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+                res = max((float(e.abs().max()) for e in err.values()), default=0.0) \
+                    if err else None
+                out[name] = {"step_ms": times, "losses": losses, "launches": launches,
+                             "loss": float(floss), "tiles": tiles, "err": res,
+                             "overflow": (int(ov["tiles"]), int(ov["assign"]))}
+        # where split's extra step time goes: one step of each under the
+        # profiler (launches not counted)
+        counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        prof = {}
+        for name in ("f32", "split"):
+            c = dataclasses.replace(cfg, **dict(WIRE_VARIANTS)[name])
+            step = dist_mod.make_gs_train_step(mesh, c, grid, rec["extent"], **kw)
+            opt0 = init_opt(g)
+            rows, share, wall, _ = device_profile(
+                lambda: step(g, opt0, batch), 1, g.means.device)
+            prof[name] = ({k: t for k, (_, t) in rows}, share, wall)
+        rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+        # the wire bytes of each table layout, from the tables themselves
+        p0 = type(g)(*(f[0, :128] for f in g))
+        splats = project(p0, select(rec["cams"], 0))
+        wire = {
+            f"{mode}/{pol}": dist_mod.wire_bytes_per_splat(cast_tables(
+                dist_mod.wire_tables(splats, mode), pol))
+            for mode in ("f32", "split") for pol in ("f32", "bf16")}
+    finally:
+        mesh_mod.destroy_distributed()
+    for mode in ("bf16", "int8"):
+        check_compressed_step(mode, seen[mode], first_m[f"compress {mode}"],
+                              first_m["f32"], cfg.b1)
+    del seen, first_m
+    base = out["f32"]["tiles"][..., :3, :, :]
+    n_rows = 2 * g.means.shape[1]
+    log(f"wire: {mesh}, schedule {sched}, assignment {impl} budget {budget}; "
+        f"wire bytes a splat (gather_mode/dtype_policy) {wire}; the all-gather "
+        f"moves {n_rows} rows a step ({n_rows * wire['f32/f32'] / 1e6:.1f} MB at "
+        f"f32, {n_rows * wire['split/bf16'] / 1e6:.1f} MB split + bf16; world 1: "
+        f"no collective runs)")
+    for name, _ in WIRE_VARIANTS:
+        o = out[name]
+        gap = (o["tiles"][..., :3, :, :] - base).abs()
+        o["gap"] = (float(gap.max()), float(gap.mean()))
+        log(f"wire {name}: step ms {[round(x, 3) for x in o['step_ms']]} "
+            f"(median {statistics.median(o['step_ms']):.3f}), step losses "
+            f"{[round(x, 9) for x in o['losses']]}, forward loss {o['loss']:.9f} "
+            f"(f32 {out['f32']['loss']:.9f}), tile gap to f32 max "
+            f"{o['gap'][0]:.4g} mean {o['gap'][1]:.4g}, overflow {o['overflow']}, "
+            f"launches {o['launches']}"
+            + (f", int8 residual max |e| {o['err']:.4g}" if o["err"] is not None
+               else ""))
+    for name, o in out.items():
+        if not all(math.isfinite(x) for x in o["losses"] + [o["loss"]]):
+            raise AssertionError(f"wire {name}: losses {o['losses']} {o['loss']}")
+        la = o["launches"]
+        if on_card and not la["bwd"] == la["fwd"] >= steps:
+            raise AssertionError(f"wire {name}: launches {la}")
+    for name in ("compress bf16", "compress int8"):
+        if abs(out[name]["loss"] - out["f32"]["loss"]) > 1e-7:
+            raise AssertionError(f"wire {name}: forward loss {out[name]['loss']} "
+                                 f"vs f32 {out['f32']['loss']}")
+    (a, sa, wa), (b, sb, wb) = prof["f32"], prof["split"]
+    log(f"wire profile, one step: f32 {wa / 1e3:.3f} ms (device busy "
+        f"{100 * sa:.1f}%, {sum(a.values()) / 1e3:.3f} ms of device time), split "
+        f"{wb / 1e3:.3f} ms (busy {100 * sb:.1f}%, {sum(b.values()) / 1e3:.3f} ms); "
+        "the kernels whose device time moved most (split - f32, ms):")
+    moved = sorted(set(a) | set(b), key=lambda k: -abs(b.get(k, 0) - a.get(k, 0)))
+    for k in moved[:8]:
+        log(f"  {(b.get(k, 0) - a.get(k, 0)) / 1e3:+8.3f}  f32 {a.get(k, 0) / 1e3:8.3f}"
+            f"  split {b.get(k, 0) / 1e3:8.3f}  {k[:90]}")
+    split_gap = out["split"]["gap"]
+    log(f"wire: split tile gap max {split_gap[0]:.4g} (the reference's gate 5e-2: "
+        f"{'held' if split_gap[0] < 5e-2 else 'NOT held'}), mean "
+        f"{split_gap[1]:.4g} (gate 2e-3)")
+    if not split_gap[1] <= 2e-3:
+        raise AssertionError(f"wire split: mean tile gap {split_gap[1]}")
+    if wire != {"f32/f32": 76, "f32/bf16": 38, "split/f32": 32, "split/bf16": 24}:
+        raise AssertionError(f"wire bytes {wire}")
+    return total
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument(
@@ -1878,6 +2121,8 @@ def main(argv=None):
         )
         # 9. the four-axis mesh and the strip prefilter on the CLI's state
         axes_launches = mesh_axes_phase(cli_rec, device)
+        # 9b. the wire options on the same mesh and state
+        wire_launches = wire_phase(cli_rec, device)
         del cli_rec
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1899,12 +2144,13 @@ def main(argv=None):
         f"{train_launches['fwd']} bwd {train_launches['bwd']}; resume fwd "
         f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; train CLI fwd "
         f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; mesh axes fwd "
-        f"{axes_launches['fwd']} bwd {axes_launches['bwd']}; serve from "
+        f"{axes_launches['fwd']} bwd {axes_launches['bwd']}; wire fwd "
+        f"{wire_launches['fwd']} bwd {wire_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
-    fwd_launches += axes_launches["fwd"]
+    fwd_launches += axes_launches["fwd"] + wire_launches["fwd"]
     fwd_launches += ckpt_serve_launches
     kernels = [
         {
@@ -1926,7 +2172,7 @@ def main(argv=None):
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
             "launches": train_launches["bwd"] + resume_launches["bwd"]
-            + cli_launches["bwd"] + axes_launches["bwd"],
+            + cli_launches["bwd"] + axes_launches["bwd"] + wire_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

@@ -11,9 +11,12 @@ on its shard and the collectives are explicit:
          independently; the only cross-pod traffic is the scalar loss
          partials' psum and the overflow counters.
   part   gaussian-parallel: the (P, N) state is split over "part" along N.
-         Each rank projects its own rows, builds the per-splat kernel table
-         (features + aux) and all-gathers it over "part" (Grendel's
-         handoff: raw gaussians and optimizer state never move).
+         Each rank projects its own rows, builds the per-splat wire tables
+         (features + aux, or under ``gather_mode="split"`` an f32
+         geometry table + a bf16 kernel table), casts them to the dtype
+         policy's storage dtype and all-gathers them over "part"
+         (Grendel's handoff: raw gaussians and optimizer state never
+         move).
   model  pixel-parallel: each rank assigns, rasterizes and takes the loss
          of its own strip of T / n_model tiles of every partition it
          holds (``strip_budget < 1`` first compacts the gathered table to
@@ -32,12 +35,13 @@ replicated output) and sums the gaussians' gradients over ("model",
 "view") (the transpose of an input replicated along them).  Every
 host-side decision (assignment budget, tier caps, overflow growth,
 densify) is made from all-reduced numbers, so every rank builds the same
-static shapes.
+static shapes.  With ``grad_compress`` the summed gradients go through
+``optim.compress`` before Adam; the int8 scale of each tensor is a MAX
+all-reduce over ("pod", "part"), the ranks holding its distinct blocks.
 
 Not ported yet (each raises, naming its ROADMAP item): the sparse-overlap
 exchange (``exchange=True``, ``ExchangeSchedule``, ``window_assignment``,
-``rebalance_partitions``), ``gather_mode="split"``, the bf16 wire tables
-and gradient compression.
+``rebalance_partitions``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch.distributed as dist
 
 from repro_torch import as_numpy
 from repro_torch.core.cameras import Camera, select
+from repro_torch.core.dtypes import cast_tables, check_policy, to_f32
 from repro_torch.core.gaussians import Gaussians
 from repro_torch.core.metrics import tile_ssim_map
 from repro_torch.core.projection import Splats2D, project
@@ -68,13 +73,14 @@ from repro_torch.core.train import (GSOptState, GSTrainCfg,
                                     _check_resume_policy, adam_update,
                                     densify_and_prune, group_lrs, init_opt)
 from repro_torch.kernels.ops import rasterize_tiles, rasterize_tiles_tiered
+from repro_torch.optim.compress import compress_grads
 from repro_torch.runtime.checkpoint import tree_flatten, tree_map
 
-#: the ROADMAP queue 1 items that own what this slice leaves out
+#: the ROADMAP queue 1 item that owns what this slice leaves out
 ITEM_EXCHANGE = ("item 18 (the sparse-overlap exchange: ExchangeSchedule, "
                  "window_assignment, rebalance_partitions)")
-ITEM_WIRE = ("item 12 (bf16 wire tables, gather_mode='split', "
-             "optim/compress.py)")
+#: the forward's table layouts
+GATHER_MODES = ("f32", "split")
 
 
 def _missing(what: str, item: str):
@@ -429,10 +435,41 @@ def _project_rows(g: Gaussians, cam: Camera, views: bool) -> Splats2D:
 def _check_forward_opts(gather_mode, exchange, dtype_policy):
     if exchange:
         raise _missing("exchange=True", ITEM_EXCHANGE)
-    if gather_mode != "f32":
-        raise _missing(f"gather_mode={gather_mode!r}", ITEM_WIRE)
-    if dtype_policy != "f32":
-        raise _missing(f"dtype_policy={dtype_policy!r}", ITEM_WIRE)
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"unknown gather_mode {gather_mode!r}; expected "
+                         f"one of {GATHER_MODES}")
+    check_policy(dtype_policy)
+
+
+def wire_tables(splats: Splats2D, gather_mode: str):
+    """This rank's per-splat tables, the rows the "part" all-gather moves
+    (before the policy cast).  "f32": the 16-column ``splat_features`` and
+    a detached (radius, depth, valid) aux.  "split": ``geo`` (mx, my,
+    valid-masked radius, depth), 4 float32 columns, and ``rest`` (the conic
+    c/det, -b/det, a/det with det clamped at 1e-12, rgb, valid-masked
+    alpha, 0), 8 bfloat16 columns under every policy -- 16 + 16 = 32 bytes
+    of wire a splat (24 under the bf16 policy) against the f32 pair's 64 +
+    12 = 76 (38)."""
+    if gather_mode != "split":
+        aux = torch.stack([splats.radius, splats.depth,
+                           splats.valid.to(torch.float32)], -1).detach()
+        return splat_features(splats), aux
+    geo = torch.stack([splats.mean2d[..., 0], splats.mean2d[..., 1],
+                       torch.where(splats.valid, splats.radius, 0.0),
+                       splats.depth], -1)
+    a, b, c = splats.cov2d[..., 0], splats.cov2d[..., 1], splats.cov2d[..., 2]
+    det = torch.clamp(a * c - b * b, min=1e-12)
+    alpha = torch.where(splats.valid, splats.alpha, 0.0)
+    rest = torch.stack([c / det, -b / det, a / det, splats.rgb[..., 0],
+                        splats.rgb[..., 1], splats.rgb[..., 2], alpha,
+                        torch.zeros_like(alpha)], -1).to(torch.bfloat16)
+    return geo, rest
+
+
+def wire_bytes_per_splat(tables) -> int:
+    """Bytes a splat moves over "part": the tables' widths times their
+    element sizes."""
+    return sum(t.shape[-1] * t.element_size() for t in tables)
 
 
 def strip_rows(n_rows: int, strip_budget: float) -> int:
@@ -483,17 +520,23 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
     g is this rank's (Pl, Nl) shard; cam / gt (Pl*Tl, 3, th, tw) / mask
     (Pl*Tl, th, tw) its part of the batch -- with ``views=V`` they carry a
     leading V / n_view axis (``gs_shard_batch``).  Steps, as the
-    reference's all-gather path: project locally, build the
-    ``splat_features`` + (radius, depth, valid) tables, all-gather them
-    over "part", fold the local views into the partition axis, assign the
+    reference's all-gather path: project locally, build the wire tables
+    (``wire_tables``: ``splat_features`` + (radius, depth, valid), or the
+    split mode's f32 ``geo`` + bf16 ``rest``), cast them to
+    ``dtype_policy``'s storage dtype (``cast_tables``: bf16 halves the
+    all-gather and its reduce-scatter transpose), all-gather them over
+    "part", fold the local views into the partition axis, promote the
+    assignment geometry (mean, radius, depth, valid) to float32, assign the
     top-K per tile of this rank's "model" strip (``strip_budget < 1``:
     first keep the ``strip_rows(N, strip_budget)`` first splats whose
     y-span touches the strip, in their order, so the (score, index)
     tie-break is unchanged), rasterize (one launch at K, or one per
     occupancy tier with ``k_tiers`` at its static ``tier_caps``; None =
-    the always-exact full-domain caps), and reduce the masked L1 + per-tile
-    D-SSIM partials: summed over ("pod", "part", "model"), the per-view
-    losses averaged over the local views and then over "view".
+    the always-exact full-domain caps; the kernel rows are gathered from
+    the tables in their storage dtype and promoted to float32 at
+    ``ops.rasterize_tiles``), and reduce the masked L1 + per-tile D-SSIM
+    partials: summed over ("pod", "part", "model"), the per-view losses
+    averaged over the local views and then over "view".
 
     The overflow dict holds () int32 counters: ``"tiles"`` (tiered tiles
     dropped past the caps) and ``"assign"`` (sorted-assignment candidates
@@ -524,36 +567,62 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
     ylo, yhi = lo[:, 1].min(), hi[:, 1].max()
     nax = 2 if views else 1
 
+    split = gather_mode == "split"
+
     def fwd(g: Gaussians, cam: Camera, gt, mask):
         splats = _project_rows(g, cam, bool(views))
-        feat_l = splat_features(splats)                      # (.., Nl, 16)
-        aux_l = torch.stack([splats.radius, splats.depth,
-                             splats.valid.to(torch.float32)], -1).detach()
-        feat = _gather(feat_l, part_group, nax)
-        with torch.no_grad():
-            aux = _gather(aux_l, part_group, nax)
+        # the policy cast comes BEFORE the collective: the payload (and the
+        # reduce-scatter of its gradient) is in the storage dtype
+        tabs = cast_tables(wire_tables(splats, gather_mode), dtype_policy)
+        tabs = [_gather(x, part_group, nax) for x in tabs]
         if views:
             # fold the local view axis into the partition axis
-            feat = feat.reshape((-1,) + tuple(feat.shape[2:]))
-            aux = aux.reshape((-1,) + tuple(aux.shape[2:]))
+            tabs = [x.reshape((-1,) + tuple(x.shape[2:])) for x in tabs]
+        if split:
+            geo, rest = tabs
+            # f32 and differentiable: the kernel rows take the mean from it
+            geo = to_f32(geo)
+        else:
+            feat, aux = tabs
+        with torch.no_grad():
+            # the assignment geometry in f32 (the policy-rounded values):
+            # (mx, my, radius, depth, valid)
+            if split:
+                geom = torch.cat([geo.detach(), (geo[..., 2:3] > 0).to(
+                    torch.float32)], -1)
+            else:
+                geom = torch.cat([feat[..., 0:2].detach(), aux],
+                                 -1).to(torch.float32)
         if strip_budget < 1.0:
             with torch.no_grad():
                 cand = _strip_candidates(
-                    feat[..., 1].detach(), aux[..., 0], aux[..., 2] > 0.5,
-                    ylo, yhi, strip_rows(feat.shape[1], strip_budget))
-                aux = _take_rows(aux, cand)
-            feat = _take_rows(feat, cand)
+                    geom[..., 1], geom[..., 2], geom[..., 4] > 0.5, ylo, yhi,
+                    strip_rows(geom.shape[1], strip_budget))
+                geom = _take_rows(geom, cand)
+            if split:
+                geo, rest = _take_rows(geo, cand), _take_rows(rest, cand)
+            else:
+                feat = _take_rows(feat, cand)
         with torch.no_grad():
-            mean_g = feat[..., 0:2].detach()
             idx, score, assign_ov = _assign_tiles_local(
-                mean_g, aux[..., 0], aux[..., 1], aux[..., 2] > 0.5, lo, hi,
-                K=K, block=assign_block, impl=assign_impl, grid=grid, t0=t0,
-                tile_budget=assign_budget)
+                geom[..., 0:2], geom[..., 2], geom[..., 3], geom[..., 4] > 0.5,
+                lo, hi, K=K, block=assign_block, impl=assign_impl, grid=grid,
+                t0=t0, tile_budget=assign_budget)
             live = score > NEG / 2                           # (Pl, Tl, K)
-        Pl = feat.shape[0]
+        del geom
+        Pl = idx.shape[0]
+        mean_tab = geo[..., 0:2] if split else None
 
         def features_for(p_rows, idx_rows, live_rows):
-            feat_t = feat[p_rows[..., None].long(), idx_rows.long()]
+            rows = (p_rows[..., None].long(), idx_rows.long())
+            if split:
+                rest_t = to_f32(rest[rows])
+                alpha = torch.where(live_rows, rest_t[..., 6], 0.0)
+                return torch.cat([mean_tab[rows], rest_t[..., :6],
+                                  alpha[..., None],
+                                  rest_t.new_zeros(tuple(rest_t.shape[:-1])
+                                                   + (FEAT_DIM - 9,))], -1)
+            feat_t = feat[rows]
             alpha = torch.where(live_rows, feat_t[..., 8], 0.0)
             return torch.cat([feat_t[..., :8], alpha[..., None],
                               feat_t[..., 9:]], -1)
@@ -775,7 +844,18 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
     gradient) averages over the view batch.  ``k_tiers`` unset takes
     ``cfg.resolved_k_tiers()`` (None forces dense); ``tier_caps`` None the
     always-exact full-domain caps.  Returns new state; the inputs are not
-    modified."""
+    modified.
+
+    ``cfg.dtype_policy`` and ``cfg.gather_mode`` pick the forward's wire
+    tables; the loss, the gradients and Adam stay float32.
+    ``cfg.grad_compress != "none"`` changes the signature to ``step(g,
+    opt, err, batch) -> (g, opt, err, loss[, overflow])``: the gradients,
+    summed over ("model", "view") and cast to float32, go through
+    ``optim.compress.compress_grads`` before Adam (and the densify
+    statistics).  ``err`` is the int8 error-feedback residual, a dict
+    shaped like this rank's trainables (None starts from zeros), and None
+    for the stateless "bf16"; the int8 scale of each tensor is the max
+    over ("pod", "part"), the ranks holding its other blocks."""
     if k_tiers is _FROM_CFG:
         k_tiers = cfg.resolved_k_tiers()
     if assign_impl is _FROM_CFG:
@@ -784,11 +864,12 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
         assign_budget = cfg.assign_budget
     if exchange is _FROM_CFG:
         exchange = cfg.exchange
-    if cfg.grad_compress != "none":
-        raise _missing(f"grad_compress={cfg.grad_compress!r}", ITEM_WIRE)
     ax = _axes(mesh)
     # the gaussians are replicated along "model" and "view"
     rep_group = mesh.group(ax.model, ax.view)
+    # ... and split along "pod" and "part": a tensor's blocks
+    shard_group = mesh.group(ax.pod, ax.data)
+    compress = cfg.grad_compress
     lrs = group_lrs(cfg, extent)
     fwd = make_gs_forward(mesh, grid, K=cfg.assign_K, impl=impl,
                           lambda_dssim=cfg.lambda_dssim,
@@ -801,7 +882,7 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
                           dtype_policy=cfg.dtype_policy)
     world = dist.get_world_size()
 
-    def step(g: Gaussians, opt: GSOptState, batch):
+    def grads_of(g: Gaussians, batch):
         tr = {k: p.detach().requires_grad_(True)
               for k, p in g.trainable().items()}
         with torch.enable_grad():
@@ -826,18 +907,43 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
                     n = grads[k].numel()
                     grads[k] = flat[off:off + n].view_as(grads[k])
                     off += n
-            new_tr, new_m, new_v, step_i = adam_update(
-                cfg, lrs, g.trainable(), grads, opt)
-            gnorm = torch.linalg.norm(grads["means"].to(torch.float32),
-                                      dim=-1)
-            new_opt = GSOptState(
-                m=new_m, v=new_v, step=step_i,
-                grad_accum=opt.grad_accum + gnorm,
-                grad_count=opt.grad_count + (gnorm > 0).to(torch.float32))
-        out = (g.with_trainable(new_tr), new_opt, loss.detach())
+        return loss.detach(), overflow, grads
+
+    @torch.no_grad()
+    def update(g: Gaussians, opt: GSOptState, grads):
+        new_tr, new_m, new_v, step_i = adam_update(
+            cfg, lrs, g.trainable(), grads, opt)
+        gnorm = torch.linalg.norm(grads["means"].to(torch.float32), dim=-1)
+        new_opt = GSOptState(
+            m=new_m, v=new_v, step=step_i,
+            grad_accum=opt.grad_accum + gnorm,
+            grad_count=opt.grad_count + (gnorm > 0).to(torch.float32))
+        return g.with_trainable(new_tr), new_opt
+
+    def step(g: Gaussians, opt: GSOptState, batch):
+        loss, overflow, grads = grads_of(g, batch)
+        out = update(g, opt, grads) + (loss,)
         return out + (overflow,) if return_overflow else out
 
-    return step
+    def step_compressed(g: Gaussians, opt: GSOptState, err, batch):
+        loss, overflow, grads = grads_of(g, batch)
+        with torch.no_grad():
+            grads, err, _ = compress_grads(
+                {k: v.to(torch.float32) for k, v in grads.items()}, compress,
+                err, group=shard_group)
+        out = update(g, opt, grads) + (err, loss)
+        return out + (overflow,) if return_overflow else out
+
+    return step if compress == "none" else step_compressed
+
+
+def zero_err(g: Gaussians, mode: str):
+    """The error-feedback state a compressed step starts from: float32
+    zeros shaped like ``g``'s trainables for "int8", None otherwise."""
+    if mode != "int8":
+        return None
+    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in g.trainable().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -923,15 +1029,22 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     probe (unless ``extra["tile_split"]``, the writer's ("pod", "model",
     "view") sizes, differs from this mesh's: its caps fit other tile
     domains) and fast-forwards the split noise.  ``warm_start=(tree, extra,
-    step)`` is the same resume from a host (g, opt) tree.
-    ``rebalance_every``, ``exchange_schedule`` and the exchange /
-    compression knobs raise (not ported)."""
+    step)`` is the same resume from a host (g, opt[, err]) tree.
+
+    Under ``cfg.grad_compress="int8"`` the error-feedback residual is step
+    state: the state tree is (g, opt, err), checkpointed in the same
+    global (P, N) layout (so a resume at any world size keeps it), set to
+    zeros after every densify event (rows moved), and dropped on
+    ``warm_start`` (a new timestep's field moved under the rows).  The
+    resume policy check runs before the tree restore: another
+    ``grad_compress`` has another leaf count.
+    ``rebalance_every``, ``exchange_schedule`` and the exchange knobs
+    raise (not ported)."""
     if rebalance_every:
         raise _missing("rebalance_every", ITEM_EXCHANGE)
     if exchange_schedule is not None or cfg.exchange:
         raise _missing("exchange", ITEM_EXCHANGE)
-    if cfg.grad_compress != "none":
-        raise _missing(f"grad_compress={cfg.grad_compress!r}", ITEM_WIRE)
+    compress = cfg.grad_compress
     dev = mesh.device
     if grid is None:
         grid = TileGrid(cams.width, cams.height, cfg.tile_h, cfg.tile_w)
@@ -954,6 +1067,11 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     gt_tiles, mask_tiles = (_cut_tiles(x, mesh, Pn, 1)
                             for x in _tile_view_batches(gts, masks, grid))
     opt = init_opt(g)
+    err = zero_err(g, compress)
+
+    def state_tree(gg, oo, ee):
+        # the int8 residual rides the checkpoint
+        return (gg, oo, ee) if compress == "int8" else (gg, oo)
 
     # how the ranks split the tile domain ("pod", "model", "view"): the
     # caps a checkpoint carries fit the split it was written under
@@ -970,13 +1088,18 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         latest = ckpt.latest_restorable_step()
         if latest is not None:
             _check_resume_policy(ckpt.manifest_extra(latest), cfg)
-            (g, opt), extra = ckpt.restore(latest, (g, opt), device=dev)
+            tree, extra = ckpt.restore(latest, state_tree(g, opt, err),
+                                       device=dev)
+            g, opt = tree[0], tree[1]
+            if compress == "int8":
+                err = tree[2]
             load_schedule(extra)
             start = latest
     if start == 0 and warm_start is not None:
         wtree, wextra, wstep = warm_start
         wextra = wextra or {}
         _check_resume_policy(wextra, cfg)
+        # the int8 residual (wtree[2], if any) stays behind: err is zeros
         g, opt = tree_map(lambda x: torch.as_tensor(np.asarray(as_numpy(x)))
                           .to(dev), (wtree[0], wtree[1]))
         load_schedule(wextra)
@@ -997,7 +1120,7 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                     torch.randn((n_split, 3), generator=generator,
                                 device=dev)
 
-    g, opt = gs_shard_state((g, opt), mesh)
+    g, opt, err = gs_shard_state((g, opt, err), mesh)
     assign = {"impl": cfg.assign_impl, "budget": cfg.assign_budget}
 
     def probe_assign(gg):
@@ -1035,8 +1158,8 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                 assign_impl=assign["impl"], assign_budget=assign["budget"])
         return step_cache[spec]
 
-    def save(step_no, gg, oo):
-        tree = gather_partitions((gg, oo), mesh)
+    def save(step_no, gg, oo, ee):
+        tree = gather_partitions(state_tree(gg, oo, ee), mesh)
         if rank0:
             ckpt.save(step_no, tree,
                       extra={"schedule": sched.state_dict() if sched
@@ -1060,7 +1183,10 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         vi = vi[v0:v0 + vloc]
         batch = {"gt_tiles": gt_tiles[vi], "mask_tiles": mask_tiles[vi],
                  "cam": select(cams, vi)}
-        g, opt, loss, ov = get_step()(g, opt, batch)
+        if compress == "none":
+            g, opt, loss, ov = get_step()(g, opt, batch)
+        else:
+            g, opt, err, loss, ov = get_step()(g, opt, err, batch)
         losses.append(float(loss))
         if sched is not None:
             # a positive (all-reduced) counter grows the caps for the next
@@ -1071,16 +1197,17 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                 assign["budget"] or DEFAULT_TILE_BUDGET, grid.n_tiles)
         if densify_at(i):
             g, opt = densify(g, opt)
+            err = zero_err(g, compress)   # rows moved: the residual is stale
             probe_assign(g)
             if sched is not None:
                 reprobe(g)
         if ckpt is not None and ckpt_every and (i + 1) % ckpt_every == 0 \
                 and (i + 1) < steps:
-            save(i + 1, g, opt)
+            save(i + 1, g, opt, err)
         if log_every and (i + 1) % log_every == 0 and rank0:
             print(f"  step {i+1:5d}  loss {losses[-1]:.4f}  "
                   f"schedule {sched if sched else 'dense'}", flush=True)
     if ckpt is not None and steps > start:
-        save(steps, g, opt)
+        save(steps, g, opt, err)
     return g, opt, losses
 

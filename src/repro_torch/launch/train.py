@@ -18,8 +18,11 @@ checkpoints -> merge -> global render + PSNR/SSIM -> the merged checkpoint
 frame that ``launch/serve_gs.py`` serves, and ``render_final.npy``.
 
 ``--device`` (default ``cuda``) and ``torchrun`` replace the reference's
-``--host-devices``; ``--mesh PxV`` picks the mesh.  The LM mode, the sparse
-exchange, load rebalancing, the bf16 policy, gradient compression and the
+``--host-devices``; ``--mesh PxV`` picks the mesh.  ``--dtype-policy
+bf16`` halves the all-gathered splat tables; ``--grad-compress bf16|int8``
+compresses the gradients (int8 with an error-feedback residual that rides
+the checkpoints); a resume under another setting of either exits naming
+both.  The LM mode, the sparse exchange, load rebalancing and the
 timeseries driver are not ported: their flags exit with an error naming
 the ROADMAP item.
 """
@@ -47,7 +50,7 @@ from repro_torch.core.pipeline import (build_scene, coverage_masks,
                                        init_partition_gaussians,
                                        render_views)
 from repro_torch.core.tiling import TileGrid
-from repro_torch.core.train import GSTrainCfg
+from repro_torch.core.train import GSTrainCfg, _check_resume_policy
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.runtime.checkpoint import CheckpointManager, quantize_cold
 
@@ -56,8 +59,6 @@ _MISSING_FLAGS = {
     "exchange": dist_mod.ITEM_EXCHANGE,
     "exchange_budget": dist_mod.ITEM_EXCHANGE,
     "rebalance_every": dist_mod.ITEM_EXCHANGE,
-    "dtype_policy": dist_mod.ITEM_WIRE,
-    "grad_compress": dist_mod.ITEM_WIRE,
     "timeseries": "item 15 (prepare_timestep, TimestepPrefetcher, "
                   "--timeseries)",
 }
@@ -92,7 +93,9 @@ def run_gs(args):
         if args.ckpt_every == 0:
             args.ckpt_every = 2
 
-    cfg = GSTrainCfg(view_batch=args.view_batch or 1)
+    cfg = GSTrainCfg(view_batch=args.view_batch or 1,
+                     dtype_policy=args.dtype_policy,
+                     grad_compress=args.grad_compress)
     n_views = args.views or get_gs_dataset(
         args.dataset, "full" if args.full else "cpu").n_views
     if args.mesh:
@@ -125,6 +128,11 @@ def run_gs(args):
     ckpt = CheckpointManager(args.ckpt_dir, keep=2)
     latest = ckpt.latest_restorable_step()
     if latest is not None:
+        try:
+            _check_resume_policy(ckpt.manifest_extra(latest), cfg)
+        except ValueError as e:
+            print(f"[train-gs] {e}", file=sys.stderr, flush=True)
+            return 2
         say(f"[train-gs] resuming from checkpoint step {latest} "
             "(schedule restored, no re-probe)")
     sched = cfg.tier_schedule()
@@ -287,13 +295,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (NCCL, one card per rank) or cpu (gloo)")
+    ap.add_argument("--dtype-policy", default="f32", choices=["f32", "bf16"],
+                    help="storage / wire dtype of the all-gathered splat "
+                         "tables (bf16 halves them); compositing, loss and "
+                         "optimizer stay f32. A resume across a policy "
+                         "change fails loudly.")
+    ap.add_argument("--grad-compress", default="none",
+                    choices=["none", "bf16", "int8"],
+                    help="gradient wire compression (optim/compress.py); "
+                         "int8 carries an error-feedback residual in step "
+                         "state and through checkpoints")
     # flags of parts not ported yet: accepted so they can be refused by name
     ap.add_argument("--exchange", action="store_true")
     ap.add_argument("--exchange-budget", type=int, default=None)
     ap.add_argument("--rebalance-every", type=int, default=0)
-    ap.add_argument("--dtype-policy", default="f32", choices=["f32", "bf16"])
-    ap.add_argument("--grad-compress", default="none",
-                    choices=["none", "bf16", "int8"])
     ap.add_argument("--timeseries", action="store_true")
     return ap
 
@@ -301,8 +316,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     defaults = {"exchange": False, "exchange_budget": None,
-                "rebalance_every": 0, "dtype_policy": "f32",
-                "grad_compress": "none", "timeseries": False}
+                "rebalance_every": 0, "timeseries": False}
     for name, item in _MISSING_FLAGS.items():
         if getattr(args, name) != defaults[name]:
             flag = "--" + name.replace("_", "-")

@@ -85,14 +85,21 @@ def step_rank(mesh, scene_path, out_dir, k_tiers, tier_caps, cfg_kw, views):
 def fit_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw, noise_path=None,
              ckpt_dir=None, tag="fit", seed=None, warm=None):
     """``fit_partitions`` on the scene; rank 0 saves the gathered result,
-    every rank its losses.  ``warm=(dir, step)``: warm-start from that
-    checkpoint's tree, extra and step instead of a disk resume."""
+    every rank its losses.  ``warm=(dir, step[, keep_err])``: warm-start
+    from that checkpoint's tree, extra and step instead of a disk resume
+    (under int8 the tree holds the residual; ``keep_err`` False hands in
+    only (g, opt))."""
     g, cams, gts, masks, grid, meta = load_scene(scene_path)
     cfg = GSTrainCfg(**cfg_kw)
     kw = dict(fit_kw)
     if warm is not None:
+        like = (g, init_opt(g))
+        if cfg.grad_compress == "int8":
+            like += (D.zero_err(g, "int8"),)
         tree, extra = CheckpointManager(warm[0]).restore(
-            warm[1], (g, init_opt(g)), device="cpu")
+            warm[1], like, device="cpu")
+        if len(warm) > 2 and not warm[2]:
+            tree = tree[:2]
         kw["warm_start"] = (tuple(tree), extra, warm[1])
     if "grid" in kw:
         kw["grid"] = TileGrid(*kw["grid"])
@@ -115,6 +122,44 @@ def fit_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw, noise_path=None,
             else list(sched.tier_caps)
         save_tree(os.path.join(out_dir, f"{tag}.npz"), g1, o1, losses,
                   caps=np.asarray(caps, np.int64))
+
+
+def wire_step_rank(mesh, scene_path, out_dir, tag, cfg_kw, views=2,
+                   k_tiers="cfg", shape=None, axes=None):
+    """One train step of ``cfg_kw`` (the wire and compression options)
+    from the scene's state on the views ``[0, views)``, on the entry mesh
+    or on a ``(shape, axes)`` mesh built on this world; ``k_tiers`` "cfg"
+    takes the cfg's ladder.  Every rank saves its loss; rank 0 the
+    gathered state and the gathered int8 residual (``e_<field>``)."""
+    g, cams, gts, masks, grid, meta = load_scene(scene_path)
+    m = mesh if shape is None else mesh_mod.make_mesh(
+        shape, axes, timeout_s=PG_TIMEOUT_S)
+    cfg = GSTrainCfg(**cfg_kw)
+    Pn = g.means.shape[0]
+    gt_t, mask_t = D._tile_view_batches(gts, masks, grid)
+    vi = torch.arange(views)
+    batch = {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+             "cam": select(cams, vi)}
+    kw = {} if k_tiers == "cfg" else {
+        "k_tiers": None if k_tiers is None else tuple(k_tiers)}
+    step = D.make_gs_train_step(m, cfg, grid, meta["extent"], impl="ref",
+                                views=views, return_overflow=True, **kw)
+    gl, ol = D.gs_shard_state((g, init_opt(g)), m)
+    b = D.gs_shard_batch(batch, m, views, n_parts=Pn)
+    if cfg.grad_compress == "none":
+        g1, o1, loss, _ = step(gl, ol, b)
+        err = None
+    else:
+        g1, o1, err, loss, _ = step(
+            gl, ol, D.zero_err(gl, cfg.grad_compress), b)
+    g1, o1, err = D.gather_partitions((g1, o1, err), m)
+    rank = dist.get_rank()
+    np.save(os.path.join(out_dir, f"{tag}_loss{rank}.npy"),
+            np.asarray([float(loss)], np.float64))
+    if rank == 0:
+        extra = {} if err is None else {f"e_{k}": v.numpy()
+                                        for k, v in err.items()}
+        save_tree(os.path.join(out_dir, f"{tag}.npz"), g1, o1, **extra)
 
 
 def probe_counter_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw, noise_path,
@@ -151,11 +196,28 @@ def cli_rank(mesh, argv, out_path):
         raise SystemExit(rc)
 
 
-def card_fit_rank(mesh, out_dir, tag, steps):
+def cli_rc_rank(mesh, argv, out_path):
+    """``launch.train.main(argv)`` on this rank, its stdout and stderr to
+    ``out_path`` (rank-suffixed) and its exit code to ``<out_path>.rc<rank>``
+    (a refusal returns 2 without raising)."""
+    import contextlib
+
+    from repro_torch.launch import train
+
+    r = dist.get_rank()
+    with open(f"{out_path}.{r}", "w") as f, contextlib.redirect_stdout(f), \
+            contextlib.redirect_stderr(f):
+        rc = train.main(list(argv))
+    with open(f"{out_path}.rc{r}", "w") as f:
+        f.write(str(rc))
+
+
+def card_fit_rank(mesh, out_dir, tag, steps, cfg_kw=None):
     """``fit_partitions`` on this rank's card: two partitions of a 128-splat
     sphere-shell model (192 slots), 4 views of 32x32 with two a step, a
-    densify event every 3 steps with injected split noise.  Every rank saves
-    its losses and its kernel launches; rank 0 the gathered state."""
+    densify event every 3 steps with injected split noise; ``cfg_kw`` adds
+    train-config fields (the wire options).  Every rank saves its losses
+    and its kernel launches; rank 0 the gathered state."""
     from repro_torch.core.cameras import orbital_rig
     from repro_torch.core.gaussians import from_points
     from repro_torch.data.isosurface import point_cloud_for
@@ -172,7 +234,7 @@ def card_fit_rank(mesh, out_dir, tag, steps):
     gts = torch.stack([torch.full((4, 32, 32, 3), c, device=dev)
                        for c in (0.5, 0.3)])
     cfg = GSTrainCfg(K=8, tile_h=8, tile_w=16, lr_colors=5e-2, max_new=32,
-                     densify_grad_thresh=1e-9)
+                     densify_grad_thresh=1e-9, **(cfg_kw or {}))
     noise = [np.random.default_rng(e).normal(size=(2, 32, 3)).astype("f4")
              for e in range(steps // 3)]
     fwd, bwd = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
@@ -278,18 +340,18 @@ def production_mesh_rank(mesh, out_path):
             json.dump(seen, f)
 
 
-def card_scene(path, views):
+def card_scene(path, views, n_part=1):
     """The CLI's full-size inputs on this process's card (``launch.train``'s
     ``gs_scene``: the 4M-point kingsnake scene, 2 partitions with ghost
-    cells, 1024x1024, ``views`` orbital views, capacity x 1.3), saved to
-    ``path`` on the host -> the scene's extent."""
+    cells, 1024x1024, ``views`` orbital views, capacity x 1.3, a multiple
+    of ``n_part``), saved to ``path`` on the host -> the scene's extent."""
     from repro_torch.launch import train
 
     args = train.build_parser().parse_args([
         "--gs", "--dataset", "kingsnake", "--full", "--parts", "2",
         "--resolution", "1024", "--views", str(views), "--densify-every",
         "3"])
-    sc = train.gs_scene(args, GSTrainCfg(), 1, torch.device("cuda", 0))
+    sc = train.gs_scene(args, GSTrainCfg(), n_part, torch.device("cuda", 0))
     cpu = lambda x: x.cpu()  # noqa: E731
     torch.save({"g": {k: cpu(v) for k, v in sc.g._asdict().items()},
                 "cam": [cpu(sc.cams.view), cpu(sc.cams.fx), cpu(sc.cams.fy),
@@ -299,10 +361,11 @@ def card_scene(path, views):
     return float(sc.extent)
 
 
-def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw):
+def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw, cfg_kw=None):
     """``fit_partitions`` of a ``card_scene`` on this rank's card with the
-    CLI's cfg: every rank saves its losses, each step's wall ms and both
-    kernels' launches; rank 0 the gathered trained state."""
+    CLI's cfg (and ``cfg_kw``'s fields): every rank saves its losses, each
+    step's wall ms and both kernels' launches; rank 0 the gathered trained
+    state."""
     import time
 
     from repro_torch.kernels import rasterize
@@ -332,7 +395,8 @@ def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw):
     D.make_gs_train_step = make
     try:
         g1, _, losses = D.fit_partitions(
-            g, cams, z["gts"], z["masks"], GSTrainCfg(), mesh=mesh,
+            g, cams, z["gts"], z["masks"], GSTrainCfg(**(cfg_kw or {})),
+            mesh=mesh,
             extent=z["extent"], grid=TileGrid(*z["grid"]), **fit_kw)
     finally:
         D.make_gs_train_step = real
@@ -345,6 +409,75 @@ def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw):
     if rank == 0:
         np.savez(os.path.join(out_dir, f"{tag}.npz"),
                  **{k: v.cpu().numpy() for k, v in g1._asdict().items()})
+
+
+def _event_ms(fn, reps, dev):
+    """ms of ``reps`` back-to-back calls of ``fn``: CUDA events on a card,
+    the host clock on the CPU."""
+    if dev.type != "cuda":
+        import time
+
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize(dev)
+    return a.elapsed_time(b)
+
+
+def card_collectives_rank(mesh, scene_path, out_dir, reps=10):
+    """The "part" all-gather and its reduce-scatter transpose of each wire
+    table layout alone, on this rank's rows of a ``card_scene`` (view 0),
+    timed with CUDA events (3 calls to warm up, then ``reps`` back to back
+    per event pair; the host clock on the CPU).  Rank 0 saves, per layout, the bytes a splat, the
+    rows received and the median ms of each collective (the ranks' max)."""
+    from repro_torch.core.dtypes import cast_tables
+
+    dev = mesh.device
+    z = torch.load(scene_path, map_location=dev)
+    g = D.gs_shard_state(Gaussians(**z["g"]), mesh)
+    cams = Camera(*z["cam"])
+    group = mesh.group(D._axes(mesh).data)
+    n = dist.get_world_size(group)
+    with torch.no_grad():
+        splats = D._project_rows(g, select(cams, 0), False)
+    out = {}
+    for mode in ("f32", "split"):
+        for pol in ("f32", "bf16"):
+            tabs = cast_tables(D.wire_tables(splats, mode), pol)
+            tabs = [t.detach().contiguous() for t in tabs]
+            full = [D._all_gather(t, group, 1) for t in tabs]
+
+            def gather():
+                return [D._all_gather(t, group, 1) for t in tabs]
+
+            def scatter():
+                return [D._reduce_scatter(f, group, 1) for f in full]
+
+            ms = []
+            for fn in (gather, scatter):
+                for _ in range(3):
+                    fn()
+                t = torch.tensor([_event_ms(fn, reps, dev) / reps],
+                                 device=dev)
+                dist.all_reduce(t, op=dist.ReduceOp.MAX)
+                ms.append(float(t))
+            rows = full[0].shape[0] * full[0].shape[1]
+            out[f"{mode}/{pol}"] = {
+                "bytes_per_splat": D.wire_bytes_per_splat(tabs),
+                "rows_received": rows * (n - 1) // n,
+                "all_gather_ms": ms[0], "reduce_scatter_ms": ms[1]}
+            del full
+    if dist.get_rank() == 0:
+        with open(os.path.join(out_dir, "collectives.json"), "w") as f:
+            json.dump(out, f)
 
 
 def jobs_rank(mesh, jobs):

@@ -519,3 +519,114 @@ def test_cuda_pod_meshes_match_world_one(cuda, tmp_path):
         for k, lr in lrs.items():
             assert dev[k].max() <= 2 * steps * lr, (tag, k, dev[k].max())
             assert np.quantile(dev[k], 0.99) <= 1e-4, (tag, k)
+
+
+def test_cuda_wire_meshes_nccl_match(cuda, tmp_path):
+    """The wire options together -- ``gather_mode="split"``,
+    ``dtype_policy="bf16"``, ``grad_compress="int8"`` -- in
+    ``card_fit_rank``'s run (two partitions, two views a step, 6 steps,
+    densify after steps 3 and 6, which zero the int8 residual) on a 2x2
+    ("part", "view") NCCL mesh of four cards and on a ("part",) mesh of
+    two.  Both kernels launch on every step of every rank; each mesh's
+    ranks report the same losses, and the two meshes' agree within 1e-3
+    relative (the card gate of the mesh tests: the bf16 table gradients
+    sum with atomics, in another order on each mesh); the same live
+    splats, owners and step; every trained field within 2 * steps * its
+    learning rate, and 99% of its components within 1e-3.  The CPU twin
+    at 1e-6 is ``tests/test_torch_wire.py``.  ``-s`` prints the
+    deviations."""
+    import _torch_dist
+    import _torch_dist_ranks as ranks
+    from repro_torch.core.train import GSTrainCfg, group_lrs
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a 2x2 NCCL mesh)")
+    rasterize.build()        # once, before the ranks load it
+    steps = 6
+    wire = dict(gather_mode="split", dtype_policy="bf16", grad_compress="int8")
+    for shape, axes, tag in (((2, 2), ("part", "view"), "wire22"),
+                             ((2,), ("part",), "wire2")):
+        _torch_dist.run_ranks(ranks.card_fit_rank, shape, tmp_path,
+                              str(tmp_path), tag, steps, wire, timeout=300.0,
+                              device="cuda", axes=axes)
+    for tag, world in (("wire22", 4), ("wire2", 2)):
+        losses = [np.load(tmp_path / f"{tag}_losses{r}.npy")
+                  for r in range(world)]
+        for r in range(world):
+            np.testing.assert_array_equal(losses[r], losses[0])
+            fwd, bwd = np.load(tmp_path / f"{tag}_launches{r}.npy")
+            assert fwd == bwd >= steps, (tag, r, fwd, bwd)
+    got, want = (np.load(tmp_path / f"{t}.npz") for t in ("wire22", "wire2"))
+    assert len(got["losses"]) == steps and np.isfinite(got["losses"]).all()
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3,
+                               atol=0)
+    for k in ("g_active", "g_owner", "step"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    lrs = group_lrs(GSTrainCfg(lr_colors=5e-2), 1.0)
+    dev = {k: np.abs(got[f"g_{k}"] - want[f"g_{k}"]) for k in lrs}
+    print(f"wire 2x2 vs 2x1 NCCL: losses {got['losses'].tolist()} vs "
+          f"{want['losses'].tolist()}; per field (max, 99th percentile) "
+          f"{ {k: (d.max(), np.quantile(d, 0.99)) for k, d in dev.items()} }")
+    for k, lr in lrs.items():
+        assert dev[k].max() <= 2 * steps * lr, (k, dev[k].max())
+        assert np.quantile(dev[k], 0.99) <= 1e-3, k
+
+
+def test_cuda_part_mesh_wire_layouts(cuda, tmp_path):
+    """The training CLI's two full-size kingsnake partitions (2 x 2.88M
+    slots, 1024x1024, 8x16 tiles, 4 views, one a step) on a ("part",) mesh
+    of four NCCL cards, each holding a quarter of every partition's slots:
+    the "part" all-gather and its reduce-scatter of each wire table layout
+    (f32 / bf16 policy x f32 / split tables) timed alone with CUDA events,
+    then ``fit_partitions`` for 5 steps with the f32 tables and with split
+    + bf16.  Both kernels launch on every step of every rank; the ranks
+    report the same losses; every loss is finite.  ``-s`` prints the cards'
+    name and power limit, each layout's bytes a splat, rows received and
+    ms, and each run's step ms and losses (the bf16 policy's loss gap is
+    the reference's policy: reported, not gated)."""
+    import json
+    import subprocess
+
+    import _torch_dist
+    import _torch_dist_ranks as ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a ('part',) mesh of 4)")
+    rasterize.build()        # once, before the ranks load it
+    scene = str(tmp_path / "scene.pt")
+    ranks.card_scene(scene, views=4, n_part=4)
+    torch.cuda.empty_cache()
+    steps = 5
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    fit = dict(steps=steps, densify_every=0)
+    runs = (("f32", {}), ("splitbf16", dict(gather_mode="split",
+                                            dtype_policy="bf16")))
+    jobs = [("card_collectives_rank", (scene, str(tmp_path)))]
+    jobs += [("card_pod_rank", (scene, str(tmp_path), tag, fit, kw))
+             for tag, kw in runs]
+    _torch_dist.run_ranks(ranks.jobs_rank, (4,), tmp_path, jobs,
+                          timeout=900.0, device="cuda", axes=("part",))
+    with open(tmp_path / "collectives.json") as f:
+        coll = json.load(f)
+    for layout, c in coll.items():
+        print(f"part x4 {layout}: {c['bytes_per_splat']} B a splat, "
+              f"{c['rows_received']} rows received "
+              f"({c['rows_received'] * c['bytes_per_splat'] / 1e6:.1f} MB), "
+              f"all-gather {c['all_gather_ms']:.4f} ms, reduce-scatter "
+              f"{c['reduce_scatter_ms']:.4f} ms")
+    assert {k: c["bytes_per_splat"] for k, c in coll.items()} == {
+        "f32/f32": 76, "f32/bf16": 38, "split/f32": 32, "split/bf16": 24}
+    for tag, _ in runs:
+        recs = [np.load(tmp_path / f"{tag}_rank{r}.npz") for r in range(4)]
+        for r, z in enumerate(recs):
+            np.testing.assert_array_equal(z["losses"], recs[0]["losses"])
+            fwd, bwd = z["launches"]
+            assert fwd == bwd >= steps, (tag, r, fwd, bwd)
+        assert len(recs[0]["losses"]) == steps
+        assert np.isfinite(recs[0]["losses"]).all()
+        ms = recs[0]["step_ms"]
+        print(f"part x4 {tag}: losses {recs[0]['losses'].tolist()}, step ms "
+              f"{np.round(ms, 3).tolist()} (median of steps 2-{steps} "
+              f"{np.median(ms[1:]):.3f})")

@@ -115,6 +115,21 @@ def test_cli_merged_checkpoint_serves_in_both_packages(cli_runs, world):
     (["--exchange"], "item 18"), (["--rebalance-every", "2"], "item 18"),
     (["--dtype-policy", "bf16"], "item 12"),
     (["--grad-compress", "int8"], "item 12"), (["--timeseries"], "item 15")])
-def test_unported_flags_exit_naming_their_item(flag, item, capsys):
+def test_unported_flags_exit_naming_their_item(flag, item, capsys,
+                                              tmp_path):
+    """Items 18 and 15 exit naming their item; item 12's flags are
+    accepted: a one-step ``--smoke`` run trains under them and records
+    them in its checkpoint."""
+    if item == "item 12":
+        argv = ["--gs", "--smoke", "--device", "cpu", "--steps", "1",
+                "--ckpt-dir", str(tmp_path)] + flag
+        assert train.main(argv) == 0
+        out = capsys.readouterr().out
+        shown = {"--dtype-policy": "dtype=",
+                 "--grad-compress": "grad-compress="}[flag[0]] + flag[1]
+        assert shown in out and "PSNR" in out, out
+        extra = JCkpt(str(tmp_path), keep=0).manifest_extra(1)
+        assert extra[flag[0][2:].replace("-", "_")] == flag[1], extra
+        return
     assert train.main(["--gs", "--smoke", "--device", "cpu"] + flag) == 2
     assert item in capsys.readouterr().err

@@ -165,10 +165,16 @@ def test_cfg_and_optimizer_state():
     for kw, err in ((dict(dtype_policy="fp8"), ValueError),
                     (dict(grad_compress="zip"), ValueError),
                     (dict(coarse=4), NotImplementedError),
-                    (dict(exchange=True), NotImplementedError),
-                    (dict(grad_compress="int8"), NotImplementedError)):
+                    (dict(exchange=True), NotImplementedError)):
         with pytest.raises(err):
             ttr.GSTrainCfg(**kw)
+    # the distributed step's wire options are settings, as in the reference
+    for kw in (dict(grad_compress="int8"), dict(gather_mode="split"),
+               dict(dtype_policy="bf16", grad_compress="bf16")):
+        assert ttr.GSTrainCfg(**kw) == ttr.GSTrainCfg(**kw)
+        for k, v in kw.items():
+            assert getattr(ttr.GSTrainCfg(**kw), k) == \
+                getattr(jtr.GSTrainCfg(**kw), k) == v
     with pytest.raises(NotImplementedError, match="item 5"):
         ttr.GSTrainCfg(coarse=4)
     g = scene()[0]
