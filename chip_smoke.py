@@ -105,6 +105,18 @@ Phases (any failure propagates and the script exits nonzero):
              tile gap <= 2e-3 (its max reported beside the reference's
              5e-2); the bf16 policy, which rounds the splat centres
              themselves, is reported only.
+9c. exchange the sparse-overlap exchange on the same world-1 mesh, state,
+             view and schedule (probed over the exchange's sub-window
+             domain): three chained steps of each of six variants -- the
+             all-gather, the exchange unbudgeted, at the probed scalar
+             budget and as a 1x1 budget matrix, and ``grad_compress=
+             "int8"`` gathered and exchanged.  At world 1 the sub-window is
+             the whole strip: every loss equal to its gather twin's within
+             1e-6 relative, every exchange counter 0, both kernels launched
+             in every variant.  A budget of a quarter of the probed demand
+             fires the counter with a finite loss, and ``fit_partitions``
+             from it (pinned, 4 steps of view 0) grows it past the demand.  Printed:
+             step ms, the rows of each table, the packing's own ms.
 10. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
    ckpt      (16 views, max_batch 8, two passes): the repeat pass all hits,
@@ -2016,6 +2028,179 @@ def wire_phase(rec, device, *, steps=3):
     return total
 
 
+#: the exchange phase's variants: (name, cfg fields, budget: None, "probe"
+#: (the probed scalar), "matrix" (a 1x1 matrix of it) or "gather")
+EXCHANGE_VARIANTS = (
+    ("gather", {}, "gather"),
+    ("exchange, no budget", dict(exchange=True), None),
+    ("exchange, probed", dict(exchange=True), "probe"),
+    ("exchange, 1x1 matrix", dict(exchange=True), "matrix"),
+    ("gather int8", dict(grad_compress="int8"), "gather"),
+    ("exchange int8", dict(exchange=True, grad_compress="int8"), "probe"),
+)
+
+
+def exchange_phase(rec, device, *, steps=3, fit_steps=4):
+    """The sparse-overlap exchange on the wire phase's world-1 ("pod",
+    "part", "model", "view") mesh, state, view and probed tier schedule:
+    ``steps`` chained train steps from the initial state for each of
+    EXCHANGE_VARIANTS (both kernels' counts set to 0 just before each
+    variant's steps and read just after); at world 1 the sub-window is the
+    whole strip, so each loss must equal its gather twin's within 1e-6
+    relative with every counter 0.  Then one forward at a quarter of the
+    probed demand must fire the counter with a finite loss, and
+    ``fit_partitions`` from that starved, pinned budget must grow it past
+    the demand in ``fit_steps`` steps (view 0 every step; its launches
+    counted too).  Printed: each variant's median step ms, the
+    rows each table carries, the packing's own ms (CUDA events on the
+    card).  -> the launches of the steps and of the fit."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    g, cfg, grid = rec["g0"], rec["cfg"], rec["grid"]
+    Pn, N = g.means.shape[:2]
+    gt_t, mask_t = dist_mod._tile_view_batches(rec["gts"], rec["masks"], grid)
+    vi = torch.arange(1, device=g.means.device)
+    on_card = torch.device(device).type == "cuda"
+    mesh_mod.init_distributed(device)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1, 1, 1), ("pod", "part", "model", "view"))
+        batch = dist_mod.gs_shard_batch(
+            {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+             "cam": select(rec["cams"], vi)}, mesh, 1, n_parts=Pn)
+        del gt_t, mask_t
+        impl, budget = dist_mod.resolve_assignment_global(
+            mesh, g, rec["cams"], grid, assign_impl=cfg.assign_impl,
+            assign_budget=cfg.assign_budget)
+        sched = cfg.tier_schedule()
+        probe = [select(rec["cams"], torch.tensor([v], device=vi.device))
+                 for v in (0, 1)]
+        dist_mod.probe_gs_schedule(sched, mesh, grid, g, probe, views=1,
+                                   assign_impl=impl, assign_budget=budget,
+                                   exchange=True)
+        demand = dist_mod.make_gs_exchange_probe(mesh, grid, views=1)(
+            g, batch["cam"])
+        E = dist_mod.probe_gs_exchange(dist_mod.ExchangeSchedule(), mesh, grid,
+                                       g, batch["cam"], views=1)
+        budgets = {None: None, "probe": E, "matrix": np.array([[E]]),
+                   "gather": None}
+        kw = dict(views=1, k_tiers=sched.k_tiers, tier_caps=sched.tier_caps,
+                  assign_impl=impl, assign_budget=budget, return_overflow=True)
+        out = {}
+        total = {"fwd": 0, "bwd": 0}
+        for name, opts, which in EXCHANGE_VARIANTS:
+            c = dataclasses.replace(cfg, **opts)
+            step = dist_mod.make_gs_train_step(
+                mesh, c, grid, rec["extent"], exchange_budget=budgets[which],
+                **kw)
+            gg, oo = g, init_opt(g)
+            err = dist_mod.zero_err(g, c.grad_compress)
+            times, losses, ovs = [], [], []
+            rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+            for _ in range(steps):
+                sync(device)
+                t0 = time.perf_counter()
+                if c.grad_compress == "none":
+                    gg, oo, loss, ov = step(gg, oo, batch)
+                else:
+                    gg, oo, err, loss, ov = step(gg, oo, err, batch)
+                sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                ovs.append({k: v.tolist() for k, v in ov.items()})
+            launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+            for k in total:
+                total[k] += launches[k]
+            del gg, oo, err
+            out[name] = {"step_ms": times, "losses": losses, "overflow": ovs,
+                         "launches": launches}
+        # the packing alone (overlap, row choice, the rows taken) on the
+        # initial state's tables (no kernel runs)
+        with torch.no_grad():
+            splats = dist_mod._project_rows(g, batch["cam"], True)
+            tabs = [x.reshape((-1,) + tuple(x.shape[2:]))
+                    for x in dist_mod.wire_tables(splats, "f32")]
+            del splats
+
+            def pack():
+                first = tabs[0]
+                hit = dist_mod._exchange_hits(
+                    (first[..., 0], first[..., 1], tabs[1][..., 0],
+                     tabs[1][..., 2] > 0.5), grid, 0, grid.n_tiles,
+                    grid.n_tiles, 1)
+                move = dist_mod._pack_exchange(hit, None, 0, E, None)[0]
+                return [move(x) for x in tabs]
+
+            moved = pack()
+            rows = {"gather": int(tabs[0].shape[0] * tabs[0].shape[1]),
+                    "exchange": int(moved[0].shape[0] * moved[0].shape[1])}
+            del moved
+            pack_ms = (cuda_time_ms(pack, 5) if on_card else None)
+            del tabs
+        # a starved budget: a quarter of the demand fires the counter
+        quarter = max(1, demand // 4)
+        fwd = dist_mod.make_gs_forward(
+            mesh, grid, K=cfg.assign_K, lambda_dssim=cfg.lambda_dssim,
+            exchange=True, exchange_budget=quarter, **kw)
+        counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        with torch.no_grad():
+            s_loss, s_ov = fwd(g, batch["cam"], batch["gt_tiles"],
+                               batch["mask_tiles"])
+        rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+        starved = {"loss": float(s_loss), "exchange": int(s_ov["exchange"])}
+        # ... and fit_partitions grows it off the counter
+        esched = dist_mod.ExchangeSchedule(budget=quarter)
+        before = esched.budget
+        c = dataclasses.replace(cfg, exchange=True, exchange_budget=quarter)
+        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        _, _, fit_losses = dist_mod.fit_partitions(
+            g, select(rec["cams"], vi), rec["gts"][:, :1], rec["masks"][:, :1],
+            c, mesh=mesh,
+            steps=fit_steps, extent=rec["extent"], grid=grid, schedule=sched,
+            exchange_schedule=esched)
+        fit_launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        for k in total:
+            total[k] += fit_launches[k]
+    finally:
+        mesh_mod.destroy_distributed()
+    log(f"exchange: {mesh}, schedule {sched}, assignment {impl} budget "
+        f"{budget}; probed demand {demand} of {N} rows a partition, scalar "
+        f"budget {E}; rows a step: all-gather table {rows['gather']}, "
+        f"exchange table {rows['exchange']} (world 1: no collective runs); "
+        f"packing alone {pack_ms if pack_ms is None else round(pack_ms, 3)} ms")
+    base = {"gather": out["gather"]["losses"],
+            "int8": out["gather int8"]["losses"]}
+    for name, _, which in EXCHANGE_VARIANTS:
+        o = out[name]
+        ref = base["int8" if "int8" in name else "gather"]
+        gap = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(o["losses"], ref))
+        log(f"exchange {name}: step ms {[round(x, 3) for x in o['step_ms']]} "
+            f"(median {statistics.median(o['step_ms']):.3f}), losses "
+            f"{[round(x, 9) for x in o['losses']]}, relative gap to its gather "
+            f"twin {gap:.3g}, last overflow {o['overflow'][-1]}, launches "
+            f"{o['launches']}")
+        if not gap <= 1e-6 or not all(math.isfinite(x) for x in o["losses"]):
+            raise AssertionError(f"exchange {name}: losses {o['losses']} vs {ref}")
+        if any(v for ov in o["overflow"] for v in np.ravel(ov["exchange"])):
+            raise AssertionError(f"exchange {name}: counter {o['overflow']}")
+        la = o["launches"]
+        if on_card and not la["bwd"] == la["fwd"] >= steps:
+            raise AssertionError(f"exchange {name}: launches {la}")
+    log(f"exchange starved: budget {quarter} (a quarter of the demand {demand}): "
+        f"counter {starved['exchange']}, loss {starved['loss']:.9f}; "
+        f"fit_partitions {fit_steps} steps from it: budget {before} -> "
+        f"{esched.budget}, losses {[round(x, 9) for x in fit_losses]}, "
+        f"launches {fit_launches}")
+    if not (starved["exchange"] > 0 and math.isfinite(starved["loss"])):
+        raise AssertionError(f"exchange starved: {starved}")
+    if not (esched.budget >= demand > before
+            and all(math.isfinite(x) for x in fit_losses)) or (
+            on_card and not fit_launches["bwd"] == fit_launches["fwd"] >= fit_steps):
+        raise AssertionError(f"exchange growth: {before} -> {esched.budget}, "
+                             f"demand {demand}, losses {fit_losses}")
+    return total
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument(
@@ -2123,6 +2308,8 @@ def main(argv=None):
         axes_launches = mesh_axes_phase(cli_rec, device)
         # 9b. the wire options on the same mesh and state
         wire_launches = wire_phase(cli_rec, device)
+        # 9c. the sparse-overlap exchange on the same mesh and state
+        ex_launches = exchange_phase(cli_rec, device)
         del cli_rec
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2145,13 +2332,14 @@ def main(argv=None):
         f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; train CLI fwd "
         f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; mesh axes fwd "
         f"{axes_launches['fwd']} bwd {axes_launches['bwd']}; wire fwd "
-        f"{wire_launches['fwd']} bwd {wire_launches['bwd']}; serve from "
+        f"{wire_launches['fwd']} bwd {wire_launches['bwd']}; exchange fwd "
+        f"{ex_launches['fwd']} bwd {ex_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
     fwd_launches += axes_launches["fwd"] + wire_launches["fwd"]
-    fwd_launches += ckpt_serve_launches
+    fwd_launches += ex_launches["fwd"] + ckpt_serve_launches
     kernels = [
         {
             "name": "rasterize_fwd",
@@ -2172,7 +2360,8 @@ def main(argv=None):
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
             "launches": train_launches["bwd"] + resume_launches["bwd"]
-            + cli_launches["bwd"] + axes_launches["bwd"] + wire_launches["bwd"],
+            + cli_launches["bwd"] + axes_launches["bwd"] + wire_launches["bwd"]
+            + ex_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

@@ -2,7 +2,7 @@
 "train every partition in parallel" on a ("pod", "part", "model", "view")
 rank mesh (any subset holding "part", or its legacy alias "data").
 
-Port of ``repro.core.distributed``, its all-gather path.  The reference is
+Port of ``repro.core.distributed``.  The reference is
 one ``shard_map`` SPMD program; here every rank runs the same eager code
 on its shard and the collectives are explicit:
 
@@ -39,9 +39,19 @@ static shapes.  With ``grad_compress`` the summed gradients go through
 ``optim.compress`` before Adam; the int8 scale of each tensor is a MAX
 all-reduce over ("pod", "part"), the ranks holding its distinct blocks.
 
-Not ported yet (each raises, naming its ROADMAP item): the sparse-overlap
-exchange (``exchange=True``, ``ExchangeSchedule``, ``window_assignment``,
-``rebalance_partitions``).
+The sparse-overlap exchange (``exchange=True``) replaces the "part"
+all-gather: each "part" rank renders only its sub-window of ceil(Tl /
+n_part) tiles of its strip, and receives only the rows whose tile bboxes
+overlap it.  A scalar budget (rows a (source, destination) edge carries)
+moves one uniform ``dist.all_to_all_single`` (``_AllToAll``); an (n, n)
+budget matrix moves a ragged ladder of ring shifts
+(``dist.batch_isend_irecv``, ``_Shift``), each shift's slab sized by its
+worst edge.  The received rows are packed source-major, ascending within
+a source: an order-preserving subsequence of the all-gather table, so the
+(score, index) top-K picks the same splats.  ``ExchangeSchedule`` sizes
+the budget from a probe (``probe_gs_exchange``) and grows it from the
+step's overflow counters; ``rebalance_partitions`` deals live rows evenly
+over the "part" shards.
 """
 
 from __future__ import annotations
@@ -67,8 +77,8 @@ from repro_torch.core.tiling import (DEFAULT_ASSIGN_IMPL, DEFAULT_TILE_BUDGET,
                                      grow_tile_budget, resolve_assign_impl,
                                      sorted_assign_window, splat_features,
                                      tile_bounds, tile_image, tile_occupancy,
-                                     tile_tiers,
-                                     topk_by_score_then_index)
+                                     tile_tiers, topk_by_score_then_index,
+                                     window_overlap_mask)
 from repro_torch.core.train import (GSOptState, GSTrainCfg,
                                     _check_resume_policy, adam_update,
                                     densify_and_prune, group_lrs, init_opt)
@@ -76,16 +86,8 @@ from repro_torch.kernels.ops import rasterize_tiles, rasterize_tiles_tiered
 from repro_torch.optim.compress import compress_grads
 from repro_torch.runtime.checkpoint import tree_flatten, tree_map
 
-#: the ROADMAP queue 1 item that owns what this slice leaves out
-ITEM_EXCHANGE = ("item 18 (the sparse-overlap exchange: ExchangeSchedule, "
-                 "window_assignment, rebalance_partitions)")
 #: the forward's table layouts
 GATHER_MODES = ("f32", "split")
-
-
-def _missing(what: str, item: str):
-    return NotImplementedError(f"{what}: not ported yet (ROADMAP queue 1, "
-                               f"{item})")
 
 
 class MeshAxes(NamedTuple):
@@ -343,6 +345,59 @@ def _gather(x, group, dim: int):
                                                     dim)
 
 
+def _all_to_all(x, group):
+    """Chunk d of ``x`` (along dim 0, one per rank of ``group``) goes to
+    rank d; chunk s of the result came from rank s."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """Uniform all-to-all over dim 0; its transpose is the same
+    all-to-all of the gradient (chunk s goes back to rank s)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _shift(x, group, k: int):
+    """Ring shift by ``k`` over ``group``: send ``x`` to rank (s + k) % n,
+    receive the same shape from rank (s - k) % n."""
+    n = dist.get_world_size(group)
+    me = dist.get_group_rank(group, dist.get_rank())
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    peer = lambda r: dist.get_global_rank(group, r % n)  # noqa: E731
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, peer(me + k), group),
+        dist.P2POp(dist.irecv, out, peer(me - k), group)])
+    for r in reqs:
+        r.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """One rung of the exchange ladder, ``_shift`` by ``k``; its transpose
+    sends the gradient back by ``-k``."""
+
+    @staticmethod
+    def forward(ctx, x, group, k: int):
+        ctx.group, ctx.k = group, k
+        return _shift(x, group, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -ctx.k), None, None
+
+
 def _world_max(values, device):
     """Element-wise MAX over every rank of a list of ints."""
     t = torch.tensor([int(v) for v in values], dtype=torch.int64,
@@ -432,9 +487,7 @@ def _project_rows(g: Gaussians, cam: Camera, views: bool) -> Splats2D:
                       for fs in zip(*per)))
 
 
-def _check_forward_opts(gather_mode, exchange, dtype_policy):
-    if exchange:
-        raise _missing("exchange=True", ITEM_EXCHANGE)
+def _check_forward_opts(gather_mode, dtype_policy):
     if gather_mode not in GATHER_MODES:
         raise ValueError(f"unknown gather_mode {gather_mode!r}; expected "
                          f"one of {GATHER_MODES}")
@@ -478,18 +531,26 @@ def strip_rows(n_rows: int, strip_budget: float) -> int:
     return -(-int(n_rows * strip_budget) // 128) * 128
 
 
+def _first_rows(mask, n_keep: int):
+    """mask (R, N) bool -> (R, n_keep) int64: the rows where it holds, in
+    their original order, filled with N past the last one (and cut at
+    n_keep)."""
+    R, N = mask.shape
+    pos = torch.cumsum(mask, dim=1) - 1
+    slot = torch.where(mask & (pos < n_keep), pos, n_keep)
+    cand = torch.full((R, n_keep + 1), N, dtype=torch.int64,
+                      device=mask.device)
+    cand.scatter_(1, slot, torch.arange(N, device=mask.device).expand(R, N))
+    return cand[:, :n_keep]
+
+
 def _strip_candidates(my, radius, valid, ylo, yhi, n_keep: int):
     """The strip prefilter's row choice: my/radius/valid (R, N) -> (R,
     n_keep) int64 rows of the splats whose circle's y-span touches [ylo,
     yhi], in their original order, filled with N past the last one (and
     cut at n_keep: the budget must cover the strip's splats)."""
-    R, N = my.shape
-    touch = valid & (my + radius >= ylo) & (my - radius <= yhi)
-    pos = torch.cumsum(touch, dim=1) - 1
-    slot = torch.where(touch & (pos < n_keep), pos, n_keep)
-    cand = torch.full((R, n_keep + 1), N, dtype=torch.int64, device=my.device)
-    cand.scatter_(1, slot, torch.arange(N, device=my.device).expand(R, N))
-    return cand[:, :n_keep]
+    return _first_rows(valid & (my + radius >= ylo) & (my - radius <= yhi),
+                       n_keep)
 
 
 def _take_rows(x, cand):
@@ -499,6 +560,92 @@ def _take_rows(x, cand):
     pad = torch.cat([x, x.new_zeros((x.shape[0], 1) + tuple(x.shape[2:]))], 1)
     return torch.gather(pad, 1, cand[..., None].expand(
         tuple(cand.shape) + tuple(x.shape[2:])))
+
+
+def _sub_window(grid: TileGrid, n_model: int, n_part: int):
+    """The exchange's split of a "model" strip over "part" -> (Tl, sub,
+    pad): the strip's tile count, each part rank's ceil(Tl / n_part)-tile
+    sub-window, and the pad tiles past the strip's end."""
+    Tl = grid.n_tiles // n_model
+    sub = -(-Tl // n_part)
+    return Tl, sub, sub * n_part - Tl
+
+
+def _window_rects(grid: TileGrid, dev, t0_strip: int, Tl: int, band: int,
+                  sub: int):
+    """lo / hi (sub, 2) of sub-window ``band`` of the strip at flat offset
+    ``t0_strip``: the rects of its real tiles, then degenerate ones (lo
+    1e9, hi -1e9) that no circle hits for the pad tiles past the strip."""
+    lo_f, hi_f = tile_bounds(grid, dev)
+    a = t0_strip + band * sub
+    real = max(0, min(sub, Tl - band * sub))
+    lo = torch.full((sub, 2), 1e9, dtype=lo_f.dtype, device=dev)
+    hi = torch.full((sub, 2), -1e9, dtype=hi_f.dtype, device=dev)
+    lo[:real], hi[:real] = lo_f[a:a + real], hi_f[a:a + real]
+    return lo, hi
+
+
+def _exchange_hits(geom_l, grid: TileGrid, t0_strip: int, Tl: int, sub: int,
+                   n: int):
+    """(mx, my, radius, valid) (R, Nl) of this rank's rows -> bool (n, R,
+    Nl): slab d holds the rows whose bboxes can touch sub-window d of the
+    strip (the pad tiles past its end count nothing)."""
+    mx, my, rad, val = geom_l
+    return window_overlap_mask(
+        mx, my, rad, val, grid,
+        t0=[t0_strip + d * sub for d in range(n)], n_local=sub,
+        t_end=t0_strip + Tl if sub * n > Tl else None)
+
+
+def _pack_exchange(hit, group, me: int, budget, tau):
+    """The exchange's packing of this rank's overlap ``hit`` (n, R, Nl) ->
+    (move, overflow, edges, demand).  ``move(x)`` maps a local (R, Nl, C)
+    table to the received (R, M, C) one: the first rows of each (source,
+    row) hit, ascending, packed source-major (fill rows are index Nl:
+    zeros, dead to assignment and compositing).  ``overflow`` () counts
+    the hits past their edge's budget.
+
+    ``budget`` an int E: every edge carries E rows, one uniform
+    ``_AllToAll`` (destination d renders band d).  Or the (n, n) matrix Bm
+    (source, band), clipped at Nl, with ``tau[i]`` the band part rank i
+    renders: a ladder of ring shifts, shift k carrying every (s -> (s + k)
+    % n) edge in a slab of ``max_s Bm[s, tau[(s + k) % n]]`` rows, each
+    source masking its slab past its own edge budget; then ``edges`` (n,)
+    is this rank's overflow per band and ``demand`` (n,) its largest hit
+    count per band (else both None)."""
+    n, R, Nl = hit.shape
+    counts = hit.sum(-1)                                       # (n, R)
+    tail = lambda x: tuple(x.shape[2:])  # noqa: E731
+    if np.ndim(budget) == 0:
+        E = int(budget)
+        cand = _first_rows(hit.reshape(n * R, Nl), E).reshape(
+            n, R, E).transpose(0, 1).reshape(R, n * E)
+
+        def move(x):
+            sent = _take_rows(x, cand).reshape((R, n, E) + tail(x))
+            sent = sent.transpose(0, 1)
+            got = sent if group is None else _AllToAll.apply(sent, group)
+            # axis 0 is now the source: flatten it source-major
+            return got.transpose(0, 1).reshape((R, n * E) + tail(x))
+        return move, torch.clamp(counts - E, min=0).sum(), None, None
+    ring = (np.arange(n) + np.arange(n)[:, None]) % n    # ring[k, s]
+    band = np.asarray(tau)[ring]               # band[k, s]: shift k's band
+    e_shift = [int(budget[np.arange(n), band[k]].max()) for k in range(n)]
+    b_row = torch.as_tensor(budget[me], device=hit.device)
+    edges = torch.clamp(counts - b_row[:, None], min=0).sum(1)
+    cands = []
+    for k in range(n):
+        c = _first_rows(hit[int(band[k, me])], e_shift[k])
+        c[:, int(budget[me, band[k, me]]):] = Nl
+        cands.append(c)
+
+    def move(x):
+        got = [_take_rows(x, c) for c in cands]
+        got = [got[0]] + [_Shift.apply(got[k], group, k)
+                          for k in range(1, n)]
+        # shift k delivered source (me - k) % n: pack source-major
+        return torch.cat([got[(me - s) % n] for s in range(n)], 1)
+    return move, edges.sum(), edges, counts.amax(1)
 
 
 def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
@@ -511,7 +658,8 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
                     return_overflow: bool = False, win_size: int = 7,
                     assign_impl: str = DEFAULT_ASSIGN_IMPL,
                     assign_budget: Optional[int] = None,
-                    exchange: bool = False, dtype_policy: str = "f32"):
+                    exchange: bool = False, exchange_budget=None,
+                    dtype_policy: str = "f32"):
     """The distributed forward of one rank: ``fwd(g, cam, gt, mask) ->
     loss`` (plus the rank's tiles with ``return_tiles`` and the overflow
     dict with ``return_overflow``), differentiable w.r.t. the rank's
@@ -538,21 +686,86 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
     partials: summed over ("pod", "part", "model"), the per-view losses
     averaged over the local views and then over "view".
 
+    ``exchange=True`` swaps the all-gather for the sparse-overlap exchange
+    (module docstring): the local views fold into the partition axis
+    first, the overlap of each local row with each part rank's sub-window
+    comes from the policy-rounded float32 geometry (``_exchange_hits``),
+    the rows travel under ``exchange_budget`` (``_pack_exchange``: None =
+    Nl, always exact; an int; or an (n_part, n_part) matrix, see
+    ``check_budget_matrix``, whose ``window_assignment`` picks the band
+    each part rank renders -- the identity under ``return_tiles``), and
+    each rank assigns, rasterizes and takes the loss of its own sub-window
+    (gt / mask arrive with the whole strip and are sliced here; pad tiles
+    are zero-masked).  ``return_tiles`` then gives the unflattened ([Vl,]
+    Pl, sub, 4, th, tw) and needs the strip to divide over "part"; the
+    strip prefilter is refused.
+
     The overflow dict holds () int32 counters: ``"tiles"`` (tiered tiles
     dropped past the caps) and ``"assign"`` (sorted-assignment candidates
-    dropped past ``assign_budget``), summed over ("pod", "model", "view"),
-    and ``"exchange"`` (always 0 on this path)."""
-    _check_forward_opts(gather_mode, exchange, dtype_policy)
+    dropped past ``assign_budget``), summed over ("pod", "model", "view")
+    -- and over "part" under the exchange, whose sub-windows are distinct
+    -- and ``"exchange"`` (rows dropped past the exchange budget; 0 on the
+    gather path), summed over every axis.  A matrix budget adds the (n, n)
+    int32 ``"exchange_edges"`` (the drops per (source, band), summed over
+    every axis) and ``"exchange_demand"`` (the in-step probe: each
+    source's largest hit count per band, MAX over ("pod", "model",
+    "view"))."""
+    _check_forward_opts(gather_mode, dtype_policy)
     ax = _axes(mesh)
     vloc = _check_views(mesh, views)
     part_group = mesh.group(ax.data)
     loss_group = mesh.group(ax.pod, ax.data, ax.model)
     view_group = mesh.group(ax.view)
-    # every "part" rank holds a redundant copy of its window: the counters
-    # sum over the other axes only
-    count_group = mesh.group(ax.pod, ax.model, ax.view)
+    all_group = mesh.group(ax.pod, ax.data, ax.model, ax.view)
+    # under the gather every "part" rank holds a redundant copy of its
+    # window: the counters sum over the other axes only
+    rest_group = mesh.group(ax.pod, ax.model, ax.view)
+    count_group = all_group if exchange else rest_group
     n_view = _size(mesh, ax.view)
+    n_part = _size(mesh, ax.data)
     t0, Tl = _strip(mesh, grid.n_tiles)
+    t0_strip = t0 or 0
+    dev = mesh.device
+    me = _index(mesh, ax.data)
+    budget_mat = None
+    if exchange:
+        if strip_budget < 1.0:
+            raise ValueError(
+                "exchange=True subsumes the strip prefilter; strip_budget "
+                f"must stay 1.0 (got {strip_budget})")
+        _, sub, pad = _sub_window(grid, _size(mesh, ax.model), n_part)
+        if pad and return_tiles:
+            raise ValueError(
+                f"return_tiles with exchange=True needs the {Tl}-tile "
+                f"window to divide by the '{ax.data}' axis (size {n_part}):"
+                " padded sub-windows cannot reassemble into the (P, T) "
+                "tile layout (the loss-only path pads instead)")
+        if exchange_budget is not None and np.ndim(exchange_budget) != 0:
+            budget_mat = check_budget_matrix(exchange_budget, n_part)
+        Wl = sub
+    else:
+        lo, hi = tile_bounds(grid, dev)
+        if t0 is not None:
+            lo, hi = lo[t0:t0 + Tl], hi[t0:t0 + Tl]
+        ylo, yhi = lo[:, 1].min(), hi[:, 1].max()
+        Wl = Tl
+
+    def window(Nl: int):
+        """The exchange's plan at Nl local rows -> (budget, tau, band, t0,
+        lo, hi): the edge budget clipped at Nl, the band each part rank
+        renders (None for a scalar budget: rank d renders band d), this
+        rank's band and its sub-window's flat offset and rects."""
+        if budget_mat is None:
+            budget = min(int(exchange_budget), Nl) if exchange_budget else Nl
+            tau = None
+        else:
+            budget = np.minimum(budget_mat, Nl)
+            tau = np.arange(n_part) if return_tiles \
+                else window_assignment(budget)
+        band = me if tau is None else int(tau[me])
+        return (budget, tau, band, t0_strip + band * sub) \
+            + _window_rects(grid, dev, t0_strip, Tl, band, sub)
+
     if k_tiers is not None:
         k_tiers = tuple(int(k) for k in k_tiers)
         K = k_tiers[-1]                  # assignment depth = largest tier
@@ -560,24 +773,59 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
             tier_caps = tuple(int(c) for c in tier_caps)
     if assign_block is None:
         assign_block = max(1024, 4096 // vloc) if views else 4096
-    dev = mesh.device
-    lo, hi = tile_bounds(grid, dev)
-    if t0 is not None:
-        lo, hi = lo[t0:t0 + Tl], hi[t0:t0 + Tl]
-    ylo, yhi = lo[:, 1].min(), hi[:, 1].max()
     nax = 2 if views else 1
+    lead = 1 if views else 0
 
     split = gather_mode == "split"
 
+    def fold(x):
+        return x.reshape((-1,) + tuple(x.shape[2:])) if views else x
+
+    def subwin(x, band: int):
+        """(lead, Pl*Tl, ...) strip tiles -> the (lead, Pl*sub, ...) tiles
+        of sub-window ``band``, pad tiles zero."""
+        y = x.reshape(tuple(x.shape[:lead]) + (-1, Tl)
+                      + tuple(x.shape[lead + 1:]))
+        if pad:
+            y = torch.cat([y, y.new_zeros(tuple(y.shape[:lead + 1]) + (pad,)
+                                          + tuple(y.shape[lead + 2:]))],
+                          lead + 1)
+        y = y.narrow(lead + 1, band * sub, sub)
+        return y.reshape(tuple(x.shape[:lead]) + (-1,)
+                         + tuple(x.shape[lead + 1:]))
+
     def fwd(g: Gaussians, cam: Camera, gt, mask):
+        if exchange:
+            budget, tau, band, t0_w, lo_w, hi_w = window(g.means.shape[1])
+        else:
+            t0_w, lo_w, hi_w = t0, lo, hi
         splats = _project_rows(g, cam, bool(views))
         # the policy cast comes BEFORE the collective: the payload (and the
-        # reduce-scatter of its gradient) is in the storage dtype
+        # transpose of its gradient) is in the storage dtype
         tabs = cast_tables(wire_tables(splats, gather_mode), dtype_policy)
-        tabs = [_gather(x, part_group, nax) for x in tabs]
-        if views:
-            # fold the local view axis into the partition axis
-            tabs = [x.reshape((-1,) + tuple(x.shape[2:])) for x in tabs]
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ex_ov, edges, demand = zero, None, None
+        if exchange:
+            tabs = [fold(x) for x in tabs]                  # (R, Nl, C)
+            with torch.no_grad():
+                # the overlap from the policy-rounded f32 geometry: the
+                # arithmetic the receiver's assignment runs
+                first = tabs[0].detach().to(torch.float32)
+                if split:
+                    rad = first[..., 2]
+                    val = rad > 0
+                else:
+                    rad = tabs[1][..., 0].to(torch.float32)
+                    val = tabs[1][..., 2] > 0.5
+                hit = _exchange_hits((first[..., 0], first[..., 1], rad, val),
+                                     grid, t0_strip, Tl, sub, n_part)
+                move, ex_ov, edges, demand = _pack_exchange(
+                    hit, part_group, me, budget, tau)
+                del hit, first
+            tabs = [move(x) for x in tabs]
+            gt, mask = subwin(gt, band), subwin(mask, band)
+        else:
+            tabs = [fold(_gather(x, part_group, nax)) for x in tabs]
         if split:
             geo, rest = tabs
             # f32 and differentiable: the kernel rows take the mean from it
@@ -606,9 +854,9 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
         with torch.no_grad():
             idx, score, assign_ov = _assign_tiles_local(
                 geom[..., 0:2], geom[..., 2], geom[..., 3], geom[..., 4] > 0.5,
-                lo, hi, K=K, block=assign_block, impl=assign_impl, grid=grid,
-                t0=t0, tile_budget=assign_budget)
-            live = score > NEG / 2                           # (Pl, Tl, K)
+                lo_w, hi_w, K=K, block=assign_block, impl=assign_impl,
+                grid=grid, t0=t0_w, tile_budget=assign_budget)
+            live = score > NEG / 2                           # (Pl, Wl, K)
         del geom
         Pl = idx.shape[0]
         mean_tab = geo[..., 0:2] if split else None
@@ -627,9 +875,9 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
             return torch.cat([feat_t[..., :8], alpha[..., None],
                               feat_t[..., 9:]], -1)
 
-        origins = lo.repeat(Pl, 1)                           # (Pl*Tl, 2)
+        origins = lo_w.repeat(Pl, 1)                         # (Pl*Wl, 2)
         if k_tiers is not None:
-            n_flat = Pl * Tl
+            n_flat = Pl * Wl
             idx_f = idx.reshape(n_flat, K)
             live_f = live.reshape(n_flat, K)
             caps = tier_caps if tier_caps is not None \
@@ -639,13 +887,12 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
                     live_f.sum(-1).to(torch.int32), k_tiers, caps)
             overflow_l = plan.overflow
             tier_feats, tier_origins = [], []
-            pad = origins.new_zeros((1, 2))
-            origins_p = torch.cat([origins, pad])
+            origins_p = torch.cat([origins, origins.new_zeros((1, 2))])
             for k, ids in zip(k_tiers, plan.tile_ids):
                 safe = torch.clamp(ids, max=n_flat - 1).long()
                 live_rows = live_f[safe, :k] & (ids < n_flat)[:, None]
                 tier_feats.append(features_for(
-                    torch.div(safe, Tl, rounding_mode="floor"),
+                    torch.div(safe, Wl, rounding_mode="floor"),
                     idx_f[safe, :k], live_rows))
                 tier_origins.append(
                     origins_p[torch.clamp(ids, max=n_flat).long()])
@@ -654,9 +901,9 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
                 tile_h=grid.tile_h, tile_w=grid.tile_w, impl=impl)
         else:
             p_rows = torch.arange(Pl, dtype=torch.int32,
-                                  device=dev)[:, None].expand(Pl, Tl)
-            tile_feat = features_for(p_rows, idx, live)     # (Pl, Tl, K, F)
-            tiles = rasterize_tiles(tile_feat.reshape(Pl * Tl, K, FEAT_DIM),
+                                  device=dev)[:, None].expand(Pl, Wl)
+            tile_feat = features_for(p_rows, idx, live)     # (Pl, Wl, K, F)
+            tiles = rasterize_tiles(tile_feat.reshape(Pl * Wl, K, FEAT_DIM),
                                     origins, tile_h=grid.tile_h,
                                     tile_w=grid.tile_w, impl=impl)
             overflow_l = torch.zeros((), dtype=torch.int32, device=dev)
@@ -680,7 +927,10 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
             return loss
         outs = (loss,)
         if return_tiles:
-            if views:
+            if exchange:
+                tiles = tiles.reshape(((vloc,) if views else ())
+                                      + (-1, Wl) + tuple(tiles.shape[1:]))
+            elif views:
                 tiles = tiles.reshape((vloc, -1) + tuple(tiles.shape[1:]))
             outs += (tiles,)
         if return_overflow:
@@ -689,9 +939,29 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
                                    assign_ov.to(torch.int64)])
                 if count_group is not None:
                     cnt = _all_reduce(cnt, dist.ReduceOp.SUM, count_group)
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            outs += ({"tiles": cnt[0].to(torch.int32),
-                      "assign": cnt[1].to(torch.int32), "exchange": zero},)
+                ex = ex_ov.to(torch.int64).reshape(1)
+                if all_group is not None:
+                    ex = _all_reduce(ex, dist.ReduceOp.SUM, all_group)
+                ov = {"tiles": cnt[0].to(torch.int32),
+                      "assign": cnt[1].to(torch.int32),
+                      "exchange": ex[0].to(torch.int32)}
+                if edges is not None:
+                    # each "part" rank owns row ``me`` of the matrices
+                    em = torch.zeros((2, n_part, n_part), dtype=torch.int64,
+                                     device=dev)
+                    em[0, me], em[1, me] = edges, demand
+                    if all_group is not None:
+                        em[0] = _all_reduce(em[0], dist.ReduceOp.SUM,
+                                            all_group)
+                    if part_group is not None:
+                        em[1] = _all_reduce(em[1], dist.ReduceOp.SUM,
+                                            part_group)
+                    if rest_group is not None:
+                        em[1] = _all_reduce(em[1], dist.ReduceOp.MAX,
+                                            rest_group)
+                    ov["exchange_edges"] = em[0].to(torch.int32)
+                    ov["exchange_demand"] = em[1].to(torch.int32)
+            outs += (ov,)
         return outs
 
     return fwd
@@ -719,9 +989,11 @@ def make_gs_probe(mesh, grid: TileGrid, *, k_tiers,
     ``TierSchedule.probe_counts`` the same numbers and builds the same
     static shapes.  ``k_tiers`` must be the schedule's FULL ladder.  The
     probe ignores ``strip_budget``: the exact table's occupancy bounds
-    every budgeted variant's."""
-    if exchange:
-        raise _missing("exchange=True", ITEM_EXCHANGE)
+    every budgeted variant's.  ``exchange=True`` bins the exchange's
+    domain instead, (Vl * Pl * sub,): part rank i's sub-window i of its
+    strip (pad tiles get the degenerate rects, so they bin nothing), still
+    from the whole all-gathered table, whose occupancy bounds any
+    budgeted exchange table's."""
     ax = _axes(mesh)
     vloc = _check_views(mesh, views)
     ladder = tuple(int(k) for k in k_tiers)
@@ -730,9 +1002,16 @@ def make_gs_probe(mesh, grid: TileGrid, *, k_tiers,
         assign_block = max(1024, 4096 // vloc) if views else 4096
     part_group = mesh.group(ax.data)
     t0, Tl = _strip(mesh, grid.n_tiles)
-    lo, hi = tile_bounds(grid, mesh.device)
-    if t0 is not None:
-        lo, hi = lo[t0:t0 + Tl], hi[t0:t0 + Tl]
+    if exchange:
+        _, sub, _ = _sub_window(grid, _size(mesh, ax.model),
+                                _size(mesh, ax.data))
+        pi = _index(mesh, ax.data)
+        lo, hi = _window_rects(grid, mesh.device, t0 or 0, Tl, pi, sub)
+        t0 = (t0 or 0) + pi * sub
+    else:
+        lo, hi = tile_bounds(grid, mesh.device)
+        if t0 is not None:
+            lo, hi = lo[t0:t0 + Tl], hi[t0:t0 + Tl]
     nax = 2 if views else 1
 
     @torch.no_grad()
@@ -765,13 +1044,15 @@ def folded_tile_count(mesh, grid: TileGrid, n_parts: int,
                       exchange: bool = False) -> int:
     """Per-rank flat tile count of the distributed binning domain,
     ``Vl * Pl * Tl`` with Pl = P / n_pod and Tl = T / n_model -- the cap
-    clamp / ``note_overflow`` ``n_tiles``.  ``n_parts`` is the GLOBAL P."""
-    if exchange:
-        raise _missing("exchange=True", ITEM_EXCHANGE)
+    clamp / ``note_overflow`` ``n_tiles``; ``exchange=True`` takes the
+    sub-window, ``Vl * Pl * ceil(Tl / n_part)``.  ``n_parts`` is the
+    GLOBAL P."""
     ax = _axes(mesh)
     vloc = views // _size(mesh, ax.view) if views else 1
-    return (vloc * (n_parts // _size(mesh, ax.pod))
-            * (grid.n_tiles // _size(mesh, ax.model)))
+    t_loc = grid.n_tiles // _size(mesh, ax.model)
+    if exchange:
+        t_loc = -(-t_loc // _size(mesh, ax.data))
+    return vloc * (n_parts // _size(mesh, ax.pod)) * t_loc
 
 
 def probe_gs_schedule(sched: TierSchedule, mesh, grid: TileGrid,
@@ -787,9 +1068,8 @@ def probe_gs_schedule(sched: TierSchedule, mesh, grid: TileGrid,
     probe_fn = make_gs_probe(mesh, grid, k_tiers=tuple(sched.ladder),
                              views=views, assign_impl=assign_impl,
                              assign_budget=assign_budget, exchange=exchange)
-    cam_batches = [cam] if isinstance(cam, Camera) else list(cam)
     counts, max_occ = None, 0
-    for cb in cam_batches:
+    for cb in _cam_batches(cam):
         c, m = probe_fn(g, cb)
         counts = c if counts is None else [max(a, b)
                                            for a, b in zip(counts, c)]
@@ -797,7 +1077,13 @@ def probe_gs_schedule(sched: TierSchedule, mesh, grid: TileGrid,
     n_parts = g.means.shape[0] * _size(mesh, _axes(mesh).pod)
     return sched.probe_counts(
         counts, max_occ,
-        n_tiles=folded_tile_count(mesh, grid, n_parts, views))
+        n_tiles=folded_tile_count(mesh, grid, n_parts, views,
+                                  exchange=exchange))
+
+
+def _cam_batches(cam) -> list:
+    """One view batch (a ``Camera``) or a sequence of them -> a list."""
+    return [cam] if isinstance(cam, Camera) else list(cam)
 
 
 def resolve_assignment_global(mesh, g: Gaussians, cams: Camera,
@@ -821,6 +1107,264 @@ def resolve_assignment_global(mesh, g: Gaussians, cams: Camera,
 
 
 # ---------------------------------------------------------------------------
+# Sparse-exchange edge budget: checks, window assignment, schedule, probe
+# ---------------------------------------------------------------------------
+
+
+def check_budget_matrix(budget, n_data: Optional[int] = None) -> np.ndarray:
+    """Validate a per-edge exchange budget matrix: square (n_part, n_part)
+    integer entries ``B[src, dst] >= 1``, and with ``n_data`` exactly the
+    "part" axis' size (a wrong size is refused, never padded) -> the int64
+    numpy matrix."""
+    B = np.asarray(budget)
+    if B.ndim != 2 or B.shape[0] != B.shape[1]:
+        raise ValueError(
+            "exchange budget matrix must be square (n_part, n_part); got "
+            f"shape {B.shape}")
+    if n_data is not None and B.shape[0] != n_data:
+        raise ValueError(
+            f"exchange budget matrix is {B.shape[0]}x{B.shape[1]} but the "
+            f"'part' axis has {n_data} devices — one row/column per device "
+            "is required (undersized/oversized matrices are refused, never "
+            "padded)")
+    if not np.issubdtype(B.dtype, np.integer):
+        if not np.all(B == np.floor(B)):
+            raise ValueError("exchange budget matrix entries must be "
+                             "integers")
+    B = B.astype(np.int64)
+    if (B < 1).any():
+        raise ValueError(
+            "exchange budget matrix entries must be >= 1 (every edge needs "
+            f"at least one slot); min entry is {int(B.min())}")
+    return B
+
+
+def window_assignment(budget) -> np.ndarray:
+    """The band (sub-window) each "part" rank renders under a budget
+    matrix: a permutation ``tau`` that lowers the ladder's wire rows
+    ``sum_k max_s B[s, tau[(s + k) % n]]`` over the shifts k >= 1 (shift 0
+    is local, hence free).  Greedy seeding puts each source's heaviest
+    band on its own shift (steepest source first), then 2-opt swaps on
+    that cost; the identity unless the result is strictly cheaper.
+    Deterministic, numpy only."""
+    B = np.asarray(budget, np.int64)
+    n = B.shape[0]
+    if n <= 1:
+        return np.zeros((n,), np.int64)
+    shifts = [(np.arange(n) + k) % n for k in range(1, n)]
+
+    def cost(tau):
+        return sum(int(B[np.arange(n), tau[s]].max()) for s in shifts)
+
+    tau = -np.ones(n, np.int64)
+    used = np.zeros(n, bool)
+    for s in np.argsort(-B.max(1), kind="stable"):
+        d = int(np.argmax(np.where(used, -1, B[s])))
+        tau[s] = d
+        used[d] = True
+    best = cost(tau)
+    improved = True
+    while improved:
+        improved = False
+        for i in range(n):
+            for j in range(i + 1, n):
+                t2 = tau.copy()
+                t2[i], t2[j] = t2[j], t2[i]
+                w = cost(t2)
+                if w < best:
+                    best, tau, improved = w, t2, True
+    ident = np.arange(n, dtype=np.int64)
+    return tau if best < cost(ident) else ident
+
+
+class ExchangeSchedule:
+    """The sparse exchange's edge budget, sized from telemetry and guarded
+    by the step's overflow counters (the ``TierSchedule`` contract):
+    ``budget`` is None (not probed yet), one int for every edge, or an
+    (n_part, n_part) int matrix ``B[src, dst]``.
+
+      probe_budget(max_edge, n_local)  size it from a probed count (an
+          int, or an (n, n) demand matrix) times ``slack``, rounded up to
+          ``round_to``, clamped to [1, n_local];
+      note_overflow(ov, n_local)       grow it by ``growth`` after a step
+          dropped rows (only the starved edges, given a matching (n, n)
+          counter); True when it changed;
+      ensure(demand, n_local)          grow, never shrink, to cover a
+          demand (rounded, clamped); True when it changed;
+      budget_key()                     a hashable snapshot (step caches);
+      state_dict / load_state / from_state  the JSON the checkpoints carry
+          in ``extra["exchange"]`` (a matrix as nested lists), key for key
+          the reference's."""
+
+    def __init__(self, *, slack: float = 1.5, round_to: int = 16,
+                 growth: float = 2.0, budget=None):
+        self.slack = float(slack)
+        self.round_to = int(round_to)
+        self.growth = float(growth)
+        self.budget = self._coerce(budget)
+
+    def _coerce(self, budget):
+        if budget is None:
+            return None
+        if np.ndim(budget) == 0:
+            return int(budget)
+        return check_budget_matrix(budget)
+
+    def _sized(self, demand, n_local: int) -> np.ndarray:
+        b = np.ceil(np.maximum(np.asarray(demand, np.int64), 1)
+                    * self.slack).astype(np.int64)
+        b = -(-b // self.round_to) * self.round_to
+        return np.clip(b, 1, int(n_local))
+
+    def probe_budget(self, max_edge, n_local: int):
+        if np.ndim(max_edge) == 2:
+            self.budget = check_budget_matrix(
+                self._sized(np.asarray(max_edge), n_local))
+        else:
+            self.budget = int(self._sized(int(max_edge), n_local))
+        return self.budget
+
+    def note_overflow(self, overflow, n_local: int) -> bool:
+        if self.budget is None:
+            return False
+        ov = np.asarray(overflow)
+        if np.ndim(self.budget) == 2:
+            B = np.asarray(self.budget)
+            starved = (ov > 0) if ov.shape == B.shape \
+                else np.full(B.shape, int(ov.sum()) > 0)
+            if not starved.any():
+                return False
+            grown = np.minimum(
+                int(n_local),
+                np.maximum(self.round_to,
+                           np.ceil(B * self.growth).astype(np.int64)))
+            new = np.where(starved, np.maximum(B, grown), B)
+            if (new == B).all():
+                return False
+            self.budget = new
+            return True
+        if int(ov.sum()) <= 0:
+            return False
+        grown = min(int(n_local),
+                    max(self.round_to,
+                        int(np.ceil(self.budget * self.growth))))
+        if grown <= self.budget:
+            return False
+        self.budget = grown
+        return True
+
+    def ensure(self, demand, n_local: int) -> bool:
+        if self.budget is None:
+            return False
+        d = np.maximum(np.asarray(demand, np.int64), 1)
+        need = np.clip(-(-d // self.round_to) * self.round_to, 1,
+                       int(n_local))
+        if np.ndim(self.budget) == 2:
+            old = np.asarray(self.budget)
+            new = np.maximum(old, check_budget_matrix(need, old.shape[0]))
+            if (new == old).all():
+                return False
+            self.budget = new
+            return True
+        new = max(int(self.budget), int(need))
+        if new == self.budget:
+            return False
+        self.budget = new
+        return True
+
+    def budget_key(self):
+        if self.budget is None or np.ndim(self.budget) == 0:
+            return self.budget
+        return tuple(tuple(int(x) for x in row)
+                     for row in np.asarray(self.budget))
+
+    def state_dict(self) -> dict:
+        b = self.budget
+        if b is not None and np.ndim(b) == 2:
+            b = [[int(x) for x in row] for row in np.asarray(b)]
+        return {"slack": self.slack, "round_to": self.round_to,
+                "growth": self.growth, "budget": b}
+
+    def load_state(self, state: dict) -> "ExchangeSchedule":
+        self.slack = float(state["slack"])
+        self.round_to = int(state["round_to"])
+        self.growth = float(state["growth"])
+        self.budget = self._coerce(state["budget"])
+        return self
+
+    @classmethod
+    def from_state(cls, state: dict) -> "ExchangeSchedule":
+        return cls().load_state(state)
+
+    def __repr__(self):
+        b = self.budget
+        if b is not None and np.ndim(b) == 2:
+            B = np.asarray(b)
+            b = (f"{B.shape[0]}x{B.shape[1]}"
+                 f"[{int(B.min())}..{int(B.max())}]")
+        return (f"ExchangeSchedule(budget={b}, "
+                f"slack={self.slack}, round_to={self.round_to})")
+
+
+def make_gs_exchange_probe(mesh, grid: TileGrid, *,
+                           views: Optional[int] = None,
+                           per_edge: bool = False):
+    """The exchange-budget probe of one rank: ``probe(g, cam)`` -> the
+    worst per-edge overlap count (an int, MAX over the world), or with
+    ``per_edge`` the (n_part, n_part) int64 numpy demand matrix (row s:
+    source s's largest count toward each band; rows assembled by a SUM
+    over "part", then MAX over ("pod", "model", "view")), identical on
+    every rank.  The counts are ``window_overlap_mask``'s, the forward's
+    packing predicate, on the projected float32 splats; no table moves."""
+    ax = _axes(mesh)
+    vloc = _check_views(mesh, views)
+    n_part = _size(mesh, ax.data)
+    t0, Tl = _strip(mesh, grid.n_tiles)
+    _, sub, _ = _sub_window(grid, _size(mesh, ax.model), n_part)
+    me = _index(mesh, ax.data)
+    dev = mesh.device
+
+    @torch.no_grad()
+    def probe(g: Gaussians, cam: Camera):
+        s = _project_rows(g, cam, bool(vloc))
+        cols = (s.mean2d[..., 0], s.mean2d[..., 1],
+                torch.where(s.valid, s.radius, 0.0), s.valid)
+        if vloc:
+            cols = tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in cols)
+        counts = _exchange_hits(cols, grid, t0 or 0, Tl, sub,
+                                n_part).sum(-1)             # (n, R)
+        if not per_edge:
+            return _world_max([int(counts.max())], dev)[0]
+        dm = torch.zeros((n_part, n_part), dtype=torch.int64, device=dev)
+        dm[me] = counts.amax(1)
+        part, rest = mesh.group(ax.data), mesh.group(ax.pod, ax.model,
+                                                     ax.view)
+        if part is not None:
+            dm = _all_reduce(dm, dist.ReduceOp.SUM, part)
+        if rest is not None:
+            dm = _all_reduce(dm, dist.ReduceOp.MAX, rest)
+        return dm.cpu().numpy()
+
+    return probe
+
+
+def probe_gs_exchange(esched: ExchangeSchedule, mesh, grid: TileGrid,
+                      g: Gaussians, cam, *, views: Optional[int] = None,
+                      per_edge: bool = False):
+    """Size ``esched`` from ``make_gs_exchange_probe`` over one view batch
+    or several (max-merged on the host) -> the new budget, identical on
+    every rank.  ``g`` is this rank's (Pl, Nl) shard: Nl clamps the
+    budget."""
+    probe_fn = make_gs_exchange_probe(mesh, grid, views=views,
+                                      per_edge=per_edge)
+    mx = None
+    for cb in _cam_batches(cam):
+        got = probe_fn(g, cb)
+        mx = got if mx is None else np.maximum(mx, got)
+    return esched.probe_budget(mx, g.means.shape[1])
+
+
+# ---------------------------------------------------------------------------
 # Distributed train step
 # ---------------------------------------------------------------------------
 
@@ -836,7 +1380,7 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
                        tier_caps: Optional[tuple] = None,
                        return_overflow: bool = False, win_size: int = 7,
                        assign_impl=_FROM_CFG, assign_budget=_FROM_CFG,
-                       exchange=_FROM_CFG):
+                       exchange=_FROM_CFG, exchange_budget=_FROM_CFG):
     """``step(g, opt, batch) -> (g, opt, loss[, overflow])`` on this rank's
     shard: the distributed forward, its gradient, and the per-group Adam
     update (``train.adam_update``) with the densify statistics on this
@@ -847,7 +1391,9 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
     modified.
 
     ``cfg.dtype_policy`` and ``cfg.gather_mode`` pick the forward's wire
-    tables; the loss, the gradients and Adam stay float32.
+    tables; the loss, the gradients and Adam stay float32.  ``exchange``
+    and ``exchange_budget`` (unset: the cfg's) pick the sparse-overlap
+    exchange (``make_gs_forward``).
     ``cfg.grad_compress != "none"`` changes the signature to ``step(g,
     opt, err, batch) -> (g, opt, err, loss[, overflow])``: the gradients,
     summed over ("model", "view") and cast to float32, go through
@@ -864,6 +1410,8 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
         assign_budget = cfg.assign_budget
     if exchange is _FROM_CFG:
         exchange = cfg.exchange
+    if exchange_budget is _FROM_CFG:
+        exchange_budget = cfg.exchange_budget
     ax = _axes(mesh)
     # the gaussians are replicated along "model" and "view"
     rep_group = mesh.group(ax.model, ax.view)
@@ -879,6 +1427,7 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
                           tier_caps=tier_caps, return_overflow=True,
                           win_size=win_size, assign_impl=assign_impl,
                           assign_budget=assign_budget, exchange=exchange,
+                          exchange_budget=exchange_budget,
                           dtype_policy=cfg.dtype_policy)
     world = dist.get_world_size()
 
@@ -991,6 +1540,69 @@ def _stack_partitions(trees):
                                                           for f in flat))])
 
 
+def _deal_rows(active: np.ndarray, n_data: int, threshold: float):
+    """``rebalance_partitions``' permutation of a global (P, N) ``active``
+    mask -> (P, N) int64 (row i of the dealt layout takes row perm[p, i]),
+    or None when no partition's skew exceeds ``threshold``."""
+    Pn, N = active.shape
+    Nl = N // n_data
+    shard_live = active.reshape(Pn, n_data, Nl).sum(-1)
+    skew = shard_live.max(-1) / np.maximum(shard_live.mean(-1), 1.0)
+    if float(skew.max()) <= threshold:
+        return None
+    perm = np.empty((Pn, N), np.int64)
+    for p in range(Pn):
+        order = np.argsort(~active[p], kind="stable")
+        L = int(active[p].sum())
+        szs = np.full(n_data, L // n_data, np.int64)
+        szs[: L % n_data] += 1
+        starts = np.concatenate([[0], np.cumsum(szs)[:-1]])
+        dest = np.empty(N, np.int64)
+        for i in range(n_data):
+            dest[starts[i]: starts[i] + szs[i]] = i * Nl + np.arange(szs[i])
+        dest[L:] = np.concatenate(
+            [np.arange(i * Nl + szs[i], (i + 1) * Nl) for i in range(n_data)])
+        perm[p, dest] = order
+    return perm
+
+
+def _permute_rows(tree, perm: np.ndarray):
+    """Apply a (P, N) row permutation to every (P, N, ...) leaf."""
+    Pn, N = perm.shape
+    idx = None
+
+    def take(x):
+        nonlocal idx
+        if not (isinstance(x, torch.Tensor) and x.dim() >= 2
+                and tuple(x.shape[:2]) == (Pn, N)):
+            return x
+        if idx is None:
+            idx = torch.as_tensor(perm, device=x.device)
+        return torch.stack([x[p][idx[p]] for p in range(Pn)])
+    return tree_map(take, tree)
+
+
+def rebalance_partitions(g: Gaussians, opt: GSOptState, mesh, *,
+                         threshold: float = 1.5):
+    """Deal each partition's live rows evenly over the "part" shards of
+    the GLOBAL (P, N) state: when the most crowded shard holds more than
+    ``threshold`` times the partition's mean live count, the live rows, in
+    their order, are dealt in contiguous near-equal blocks (block i fills
+    the front of shard i, the dead rows the rest).  A pure permutation:
+    shapes stay, the optimizer rows travel with their splats, and equal
+    inputs give the same permutation on every rank (a stable sort, no
+    random draw), so every rank runs it on the gathered state and keeps
+    its block.  Contiguous blocks keep each shard a compact run of the
+    partition's spatial order.  ``threshold=0`` forces the deal.  Only the
+    mesh's "part" size is read.  -> (g, opt, moved); the inputs when
+    nothing moved."""
+    perm = _deal_rows(as_numpy(g.active).astype(bool),
+                      _size(mesh, _axes(mesh).data), threshold)
+    if perm is None:
+        return g, opt, False
+    return _permute_rows(g, perm), _permute_rows(opt, perm), True
+
+
 def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                    *, mesh, steps: int, extent: float, generator=None,
                    densify_every: int = 0, densify_from: int = 100,
@@ -998,7 +1610,9 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                    view_batch: Optional[int] = None,
                    schedule: Optional[TierSchedule] = None,
                    impl: str = "auto", win_size: int = 7,
-                   rebalance_every: int = 0, ckpt=None, ckpt_every: int = 0, log_every: int = 0,
+                   rebalance_every: int = 0,
+                   rebalance_threshold: float = 1.5, ckpt=None,
+                   ckpt_every: int = 0, log_every: int = 0,
                    warm_start=None, densify_cap: Optional[int] = None,
                    exchange_schedule=None,
                    densify_noise: Optional[Iterable] = None):
@@ -1038,12 +1652,20 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     ``warm_start`` (a new timestep's field moved under the rows).  The
     resume policy check runs before the tree restore: another
     ``grad_compress`` has another leaf count.
-    ``rebalance_every``, ``exchange_schedule`` and the exchange knobs
-    raise (not ported)."""
-    if rebalance_every:
-        raise _missing("rebalance_every", ITEM_EXCHANGE)
-    if exchange_schedule is not None or cfg.exchange:
-        raise _missing("exchange", ITEM_EXCHANGE)
+
+    Under ``cfg.exchange`` the step runs the sparse-overlap exchange.  Its
+    budget is ``cfg.exchange_budget`` when set (pinned: never re-probed),
+    else the ``ExchangeSchedule`` (``exchange_schedule``, default a fresh
+    one) is probed at init -- per edge, an (n, n) matrix, when "part" has
+    more than one rank -- over up to 4 view batches.  Each step's counter
+    grows the starved edges (``note_overflow``) and its in-step demand
+    matrix is kept as a running max; after densify the budget is grown to
+    that demand + ``cfg.max_new`` (``ensure``; a re-probe without one).
+    The schedule rides the checkpoints in ``extra["exchange"]``: a resume
+    or a warm start restores it without a probe.  ``rebalance_every=R``
+    runs ``rebalance_partitions`` on the gathered state every R steps at
+    ``rebalance_threshold``; a deal that moved rows drops the demand,
+    re-probes the budget and zeroes the int8 residual."""
     compress = cfg.grad_compress
     dev = mesh.device
     if grid is None:
@@ -1058,7 +1680,16 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     vloc = _check_views(mesh, vb)
     v0 = _index(mesh, ax.view) * vloc
     sched = schedule if schedule is not None else cfg.tier_schedule()
-    m_dev = folded_tile_count(mesh, grid, Pn, views=vb)
+    m_dev = folded_tile_count(mesh, grid, Pn, views=vb,
+                              exchange=cfg.exchange)
+    ex = exchange_schedule if exchange_schedule is not None else (
+        ExchangeSchedule(budget=cfg.exchange_budget) if cfg.exchange
+        else None)
+    ex_pinned = cfg.exchange_budget is not None
+    n_data = _size(mesh, ax.data)
+    Nl = g.means.shape[1] // n_data
+    # per-edge budgets need a real "part" axis (a 1x1 matrix is a scalar)
+    ex_per_edge = cfg.exchange and not ex_pinned and n_data > 1
     dcfg = dataclasses.replace(cfg, densify_cap=densify_cap) \
         if densify_cap is not None else cfg
     rank0 = dist.get_rank() == 0
@@ -1082,6 +1713,8 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
             sched.load_state(extra["schedule"])
             if extra.get("tile_split", [1, 1, 1]) != split:
                 sched.tier_caps = None       # re-probe on this mesh
+        if ex is not None and extra.get("exchange"):
+            ex.load_state(extra["exchange"])
 
     start, losses = 0, []
     if ckpt is not None:
@@ -1130,6 +1763,9 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         assign.update(impl=impl_, budget=budget)
 
     n_probe = 2 if vb < 2 and V > 1 else 1
+    if cfg.exchange:
+        # a per-edge budget has no worst-edge slack: probe a few batches
+        n_probe = max(n_probe, min(-(-V // vb), 4))
     probe_cams = []
     for b in range(n_probe):
         vi = (b * vb + torch.arange(vb, device=dev)) % V
@@ -1138,24 +1774,39 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     def reprobe(gg):
         probe_gs_schedule(sched, mesh, grid, gg, probe_cams, views=vb,
                           assign_impl=assign["impl"],
-                          assign_budget=assign["budget"])
+                          assign_budget=assign["budget"],
+                          exchange=cfg.exchange)
+
+    def reprobe_exchange(gg):
+        # a pinned budget is never re-probed
+        if ex is not None and not ex_pinned:
+            probe_gs_exchange(ex, mesh, grid, gg, probe_cams, views=vb,
+                              per_edge=ex_per_edge)
 
     probe_assign(g)
     if sched is not None and sched.tier_caps is None:
         reprobe(g)
+    if ex is not None and ex.budget is None:
+        # a resume restored the budget: no probe
+        probe_gs_exchange(ex, mesh, grid, g, probe_cams, views=vb,
+                          per_edge=ex_per_edge)
 
     step_cache = {}
+    ex_demand = None        # running max of the steps' in-step demand
 
     def get_step():
         spec = ((sched.k_tiers, sched.tier_caps) if sched else None,
-                assign["impl"], assign["budget"])
+                assign["impl"], assign["budget"],
+                ex.budget_key() if ex else None)
         if spec not in step_cache:
             step_cache[spec] = make_gs_train_step(
                 mesh, cfg, grid, extent, impl=impl, views=vb,
                 k_tiers=sched.k_tiers if sched else None,
                 tier_caps=sched.tier_caps if sched else None,
                 return_overflow=True, win_size=win_size,
-                assign_impl=assign["impl"], assign_budget=assign["budget"])
+                assign_impl=assign["impl"], assign_budget=assign["budget"],
+                exchange=cfg.exchange,
+                exchange_budget=ex.budget if ex else None)
         return step_cache[spec]
 
     def save(step_no, gg, oo, ee):
@@ -1164,7 +1815,7 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
             ckpt.save(step_no, tree,
                       extra={"schedule": sched.state_dict() if sched
                              else None,
-                             "exchange": None,
+                             "exchange": ex.state_dict() if ex else None,
                              "dtype_policy": cfg.dtype_policy,
                              "grad_compress": cfg.grad_compress,
                              "tile_split": split})
@@ -1195,12 +1846,37 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         if assign["impl"] == "sorted" and int(ov["assign"]) > 0:
             assign["budget"] = grow_tile_budget(
                 assign["budget"] or DEFAULT_TILE_BUDGET, grid.n_tiles)
+        if ex is not None:
+            # a matrix budget grows only its starved edges
+            ex.note_overflow(as_numpy(ov.get("exchange_edges",
+                                             ov["exchange"])), Nl)
+            if "exchange_demand" in ov:
+                dm = as_numpy(ov["exchange_demand"])
+                ex_demand = dm if ex_demand is None \
+                    else np.maximum(ex_demand, dm)
         if densify_at(i):
             g, opt = densify(g, opt)
             err = zero_err(g, compress)   # rows moved: the residual is stale
             probe_assign(g)
             if sched is not None:
                 reprobe(g)
+            if ex is not None and not ex_pinned and ex_demand is not None:
+                # densify adds at most cfg.max_new rows a partition: the
+                # running demand + max_new bounds every edge after it
+                ex.ensure(ex_demand + cfg.max_new, Nl)
+            else:
+                reprobe_exchange(g)
+        if rebalance_every and (i + 1) % rebalance_every == 0:
+            # the skew from the gathered mask; the state only when it moves
+            perm = _deal_rows(as_numpy(gather_partitions(g.active, mesh)),
+                              n_data, rebalance_threshold)
+            if perm is not None:
+                g, opt = gs_shard_state(_permute_rows(
+                    gather_partitions((g, opt), mesh), perm), mesh)
+                err = zero_err(g, compress)  # rows moved across shards
+                # the demand history describes no edge any more
+                ex_demand = None
+                reprobe_exchange(g)
         if ckpt is not None and ckpt_every and (i + 1) % ckpt_every == 0 \
                 and (i + 1) < steps:
             save(i + 1, g, opt, err)

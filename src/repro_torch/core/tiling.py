@@ -227,6 +227,38 @@ def auto_tile_budget(max_count, n_tiles: int, *, slack: float = 1.5,
     return max(1, min(b, max(int(n_tiles), 1)))
 
 
+def window_overlap_mask(mx, my, rad, valid, grid: TileGrid, *, t0,
+                        n_local: int, t_end=None):
+    """Which splats' clipped tile bboxes can touch the contiguous row-major
+    flat-tile window ``[t0, t0 + n_local)``: the sparse exchange's
+    per-(source, destination) packing predicate.
+
+    mx/my/rad/valid (..., N); ``t0`` an int or a (W,) sequence of window
+    offsets (which prepends a window axis) -> bool (..., N) (or (W, ...,
+    N)).  A window's tiles live in rows ``[t0 // nx, (t0 + n_local - 1) //
+    nx]``; a splat whose clipped bbox rows meet that span is a superset of
+    the splats whose circles hit a window tile.  ``t_end`` clips every
+    window at an exclusive flat-tile bound (``[t0, min(t0 + n_local,
+    t_end))``; a window starting at or past it matches nothing): the
+    padded sub-windows of a strip that does not divide."""
+    _, _, y0, y1 = _bbox_bounds(mx, my, rad, grid)
+    t0 = torch.as_tensor(t0, dtype=torch.int32, device=mx.device)
+    if t_end is None:
+        lim, live = t0 + n_local, None
+    else:
+        t_end = torch.as_tensor(t_end, dtype=torch.int32, device=mx.device)
+        lim, live = torch.minimum(t0 + n_local, t_end), t0 < t_end
+    r0 = torch.div(t0, grid.nx, rounding_mode="floor")
+    r1 = torch.div(lim - 1, grid.nx, rounding_mode="floor")
+    if t0.dim():
+        shape = tuple(t0.shape) + (1,) * y0.dim()
+        r0, r1 = r0.reshape(shape), r1.reshape(shape)
+        if live is not None:
+            live = live.reshape(shape)
+    out = valid & (y0 <= r1) & (y1 >= r0)
+    return out if live is None else out & live
+
+
 def grow_tile_budget(budget: int, n_tiles: int, *, growth: float = 2.0,
                      round_to: int = 16) -> int:
     """Geometric growth for a per-splat tile budget that reported overflow,

@@ -13,9 +13,9 @@ differentiates the loss with ``torch.autograd.grad`` -- through the CUDA
 ``rasterize_bwd`` kernel on the card -- and returns NEW gaussians and
 optimizer state, leaving its inputs untouched.
 
-Not ported yet: the knobs of the parts that are missing (``coarse`` and
-the sparse-overlap exchange), which raise naming their ROADMAP item.  The
-distributed step's ``gather_mode`` and ``grad_compress`` are settings this
+Not ported yet: the coarse pre-cull's knob (``coarse``), which raises
+naming its ROADMAP item.  The distributed step's ``gather_mode``,
+``grad_compress``, ``exchange`` and ``exchange_budget`` are settings this
 single-device trainer ignores, as the reference's does; its checkpoints
 record ``grad_compress`` beside ``dtype_policy``.
 """
@@ -42,8 +42,6 @@ from repro_torch.core.tiling import (DEFAULT_TILE_BUDGET, TierSchedule,
 #: ROADMAP queue 1 item that ports the part)
 _MISSING_KNOBS = {
     "coarse": (None, "item 5 (the coarse superblock pre-cull)"),
-    "exchange": (False, "item 18 (the sparse-overlap exchange)"),
-    "exchange_budget": (None, "item 18 (the sparse-overlap exchange)"),
 }
 
 
@@ -87,10 +85,12 @@ class GSTrainCfg:
     prune_opacity: float = 0.005
     prune_scale: float = 0.5        # x extent: prune absurdly large splats
     split_shrink: float = 1.6
-    # options of the distributed step (core/distributed.py; the exchange
-    # is not ported yet): "f32" | "split" wire tables, the strip
-    # prefilter, the mixed-precision policy, gradient compression ("none" |
-    # "bf16" | "int8" with error feedback)
+    # options of the distributed step (core/distributed.py): "f32" |
+    # "split" wire tables, the strip prefilter, the sparse-overlap exchange
+    # in place of the "part" all-gather (``exchange_budget`` None: probed
+    # and grown by fit_partitions; an int pins it), the mixed-precision
+    # policy, gradient compression ("none" | "bf16" | "int8" with error
+    # feedback)
     gather_mode: str = "f32"
     strip_budget: float = 1.0
     exchange: bool = False

@@ -22,9 +22,12 @@ frame that ``launch/serve_gs.py`` serves, and ``render_final.npy``.
 bf16`` halves the all-gathered splat tables; ``--grad-compress bf16|int8``
 compresses the gradients (int8 with an error-feedback residual that rides
 the checkpoints); a resume under another setting of either exits naming
-both.  The LM mode, the sparse exchange, load rebalancing and the
-timeseries driver are not ported: their flags exit with an error naming
-the ROADMAP item.
+both.  ``--exchange`` swaps the "part" all-gather for the sparse-overlap
+exchange (its budget probed, or pinned by ``--exchange-budget``, and
+restored by a resume); ``--rebalance-every N`` deals live splats evenly
+over the "part" ranks every N steps.  The LM mode and the timeseries
+driver are not ported: their flags exit with an error naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -56,9 +59,6 @@ from repro_torch.runtime.checkpoint import CheckpointManager, quantize_cold
 
 #: flags of parts not ported yet -> the ROADMAP queue 1 item that owns them
 _MISSING_FLAGS = {
-    "exchange": dist_mod.ITEM_EXCHANGE,
-    "exchange_budget": dist_mod.ITEM_EXCHANGE,
-    "rebalance_every": dist_mod.ITEM_EXCHANGE,
     "timeseries": "item 15 (prepare_timestep, TimestepPrefetcher, "
                   "--timeseries)",
 }
@@ -94,6 +94,8 @@ def run_gs(args):
             args.ckpt_every = 2
 
     cfg = GSTrainCfg(view_batch=args.view_batch or 1,
+                     exchange=args.exchange,
+                     exchange_budget=args.exchange_budget,
                      dtype_policy=args.dtype_policy,
                      grad_compress=args.grad_compress)
     n_views = args.views or get_gs_dataset(
@@ -117,11 +119,14 @@ def run_gs(args):
     del sc
 
     kt = cfg.resolved_k_tiers()
+    table = "exchange" if cfg.exchange else "all-gather"
+    if cfg.exchange and cfg.exchange_budget:
+        table += f"(budget={cfg.exchange_budget})"
     say(f"[train-gs] dataset={args.dataset} parts={args.parts} "
         f"res={args.resolution} views={n_views} mesh={p}x{v} "
         f"({world} ranks, {mesh_mod.backend_for(dev)} on {dev.type}) "
         f"ghost={not args.no_ghost} mask={not args.no_mask} "
-        f"table=all-gather raster="
+        f"table={table} raster="
         f"{'tiered ' + str(kt) if kt else 'dense K=' + str(cfg.assign_K)} "
         f"dtype={cfg.dtype_policy} grad-compress={cfg.grad_compress}")
 
@@ -145,7 +150,7 @@ def run_gs(args):
         extent=extent, generator=generator,
         densify_every=args.densify_every, densify_from=args.densify_from,
         grid=grid, schedule=sched, ckpt=ckpt, ckpt_every=args.ckpt_every,
-        log_every=args.log_every)
+        rebalance_every=args.rebalance_every, log_every=args.log_every)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
@@ -305,20 +310,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="gradient wire compression (optim/compress.py); "
                          "int8 carries an error-feedback residual in step "
                          "state and through checkpoints")
+    ap.add_argument("--exchange", action="store_true",
+                    help="sparse-overlap splat exchange instead of the "
+                         "full-table all-gather (probed edge budgets, "
+                         "overflow counters)")
+    ap.add_argument("--exchange-budget", type=int, default=None,
+                    help="pin the per-(src,dst) edge budget instead of "
+                         "probing it")
+    ap.add_argument("--rebalance-every", type=int, default=0,
+                    help="check per-shard live-splat skew every N steps "
+                         "and permute rows to rebalance (0 = off)")
     # flags of parts not ported yet: accepted so they can be refused by name
-    ap.add_argument("--exchange", action="store_true")
-    ap.add_argument("--exchange-budget", type=int, default=None)
-    ap.add_argument("--rebalance-every", type=int, default=0)
     ap.add_argument("--timeseries", action="store_true")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    defaults = {"exchange": False, "exchange_budget": None,
-                "rebalance_every": 0, "timeseries": False}
     for name, item in _MISSING_FLAGS.items():
-        if getattr(args, name) != defaults[name]:
+        if getattr(args, name):
             flag = "--" + name.replace("_", "-")
             print(f"[train] {flag}: not ported yet (ROADMAP queue 1, "
                   f"{item})", file=sys.stderr)

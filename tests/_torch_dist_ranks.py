@@ -163,21 +163,22 @@ def wire_step_rank(mesh, scene_path, out_dir, tag, cfg_kw, views=2,
 
 
 def probe_counter_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw, noise_path,
-                       ckpt_dir, tag):
-    """``fit_rank`` with the tier probe counted (a resume makes none)."""
+                       ckpt_dir, tag, probe="probe_gs_schedule"):
+    """``fit_rank`` with the calls of ``D.<probe>`` counted (the tier
+    probe, or ``probe_gs_exchange``: a resume makes none)."""
     calls = []
-    real = D.probe_gs_schedule
+    real = getattr(D, probe)
 
     def counted(*a, **k):
         calls.append(1)
         return real(*a, **k)
 
-    D.probe_gs_schedule = counted
+    setattr(D, probe, counted)
     try:
         fit_rank(mesh, scene_path, out_dir, cfg_kw, fit_kw,
                  noise_path=noise_path, ckpt_dir=ckpt_dir, tag=tag)
     finally:
-        D.probe_gs_schedule = real
+        setattr(D, probe, real)
     np.save(os.path.join(out_dir, f"{tag}_probes{dist.get_rank()}.npy"),
             np.asarray(len(calls)))
 
@@ -364,7 +365,8 @@ def card_scene(path, views, n_part=1):
 def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw, cfg_kw=None):
     """``fit_partitions`` of a ``card_scene`` on this rank's card with the
     CLI's cfg (and ``cfg_kw``'s fields): every rank saves its losses, each
-    step's wall ms and both kernels' launches; rank 0 the gathered trained
+    step's wall ms, the whole call's wall s (probes, densify and rebalance
+    included) and both kernels' launches; rank 0 the gathered trained
     state."""
     import time
 
@@ -393,6 +395,9 @@ def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw, cfg_kw=None):
 
     fwd, bwd = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
     D.make_gs_train_step = make
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
     try:
         g1, _, losses = D.fit_partitions(
             g, cams, z["gts"], z["masks"], GSTrainCfg(**(cfg_kw or {})),
@@ -400,12 +405,16 @@ def card_pod_rank(mesh, scene_path, out_dir, tag, fit_kw, cfg_kw=None):
             extent=z["extent"], grid=TileGrid(*z["grid"]), **fit_kw)
     finally:
         D.make_gs_train_step = real
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
     launches = [rasterize.LAUNCHES - fwd, rasterize.BWD_LAUNCHES - bwd]
     g1 = D.gather_partitions(g1, mesh)
     rank = dist.get_rank()
     np.savez(os.path.join(out_dir, f"{tag}_rank{rank}.npz"),
              losses=np.asarray(losses, np.float64),
-             step_ms=np.asarray(times), launches=np.asarray(launches))
+             step_ms=np.asarray(times), launches=np.asarray(launches),
+             fit_s=np.asarray(fit_s))
     if rank == 0:
         np.savez(os.path.join(out_dir, f"{tag}.npz"),
                  **{k: v.cpu().numpy() for k, v in g1._asdict().items()})
@@ -485,3 +494,301 @@ def jobs_rank(mesh, jobs):
     of (function name, args) -- one spawn for many checks."""
     for name, args in jobs:
         globals()[name](mesh, *args)
+
+
+def _banded_state(cams, grid, n_part, Pn, Nl):
+    """(Pn, n_part * Nl) small splats (scale 0.003) at random points whose
+    bboxes in view 0 each lie in one band -- one tile row of the grid per
+    "part" rank -- with "part" shard s holding only splats of band (s + 1)
+    % n_part: the exchange's heavy edges on a derangement."""
+    from repro_torch.core.gaussians import from_points
+    from repro_torch.core.projection import project
+    from repro_torch.core.tiling import _bbox_bounds
+
+    gen = torch.Generator().manual_seed(0)
+    pts = -0.25 + 1.5 * torch.rand((8192, 3), generator=gen)
+    cols = torch.rand((8192, 3), generator=gen)
+    g = from_points(pts, cols, opacity=0.8, init_scale=0.003, device="cpu")
+    s = project(g, select(cams, 0))
+    mx, my = s.mean2d[:, 0], s.mean2d[:, 1]
+    _, _, y0, y1 = _bbox_bounds(mx, my, s.radius, grid)
+    inside = s.valid & (mx >= 0) & (mx < grid.width) & (my >= 0) \
+        & (my < grid.height) & (y0 == y1)
+    rows_per_band = grid.ny // n_part
+    band = torch.div(y0, rows_per_band, rounding_mode="floor")
+    pick = []
+    for sh in range(n_part):
+        cand = torch.nonzero(inside & (band == (sh + 1) % n_part))[:, 0]
+        pick.append(cand[:Pn * Nl].reshape(Pn, Nl))
+    rows = torch.cat(pick, 1)                          # (Pn, n_part * Nl)
+    return Gaussians(*(torch.stack([f[rows[p]] for p in range(Pn)])
+                       for f in g))
+
+
+#: the exchange checks ``exchange_rank`` runs, by name
+EX_CHECKS = ("fwd", "tau", "step", "starve", "pad", "wire")
+
+
+def _ex_ov(ov) -> dict:
+    return {k: v.numpy() for k, v in ov.items()}
+
+
+def exchange_rank(mesh, scene_path, out_dir, tag, shape, axes, checks,
+                  pad_grid=None):
+    """The sparse-overlap exchange against the all-gather on a ``(shape,
+    axes)`` mesh built on this world, two views of the scene's batch, K =
+    16, the reference's ``EXCHANGE_SCRIPT`` cases: ``checks`` names which
+    (``EX_CHECKS``).  Every rank saves ``<tag>_rank<r>.npz``: its
+    coordinates, the probes, and per case the loss, its tiles and its
+    overflow counters (``<case>_<counter>``; the tiles as ``<case>_px``); rank 0 also the gathered
+    trainables of each step case (``<case>_g_<field>``)."""
+    g, cams, gts, masks, grid, meta = load_scene(scene_path)
+    m = mesh_mod.make_mesh(shape, axes, timeout_s=PG_TIMEOUT_S)
+    Pn, V = g.means.shape[0], 2
+    gt_t, mask_t = D._tile_view_batches(gts, masks, grid)
+    vi = torch.arange(V)
+    batch = {"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+             "cam": select(cams, vi)}
+    gl = D.gs_shard_state(g, m)
+    b = D.gs_shard_batch(batch, m, V, n_parts=Pn)
+    cam = b["cam"]
+    rank = dist.get_rank()
+    out = {"coords": np.asarray(m.coords)}
+
+    def fwd(case, grid_=grid, b_=b, views_=V, **kw):
+        f = D.make_gs_forward(m, grid_, K=16, impl="ref", views=views_,
+                              return_overflow=True, **kw)
+        res = f(gl, b_["cam"], b_["gt_tiles"], b_["mask_tiles"])
+        out[f"{case}_loss"] = np.asarray(float(res[0]), np.float64)
+        if kw.get("return_tiles"):
+            out[f"{case}_px"] = res[1].detach().numpy()
+        for k, v in _ex_ov(res[-1]).items():
+            out[f"{case}_{k}"] = v
+
+    E = D.probe_gs_exchange(D.ExchangeSchedule(), m, grid, gl, cam, views=V)
+    B = D.probe_gs_exchange(D.ExchangeSchedule(), m, grid, gl, cam, views=V,
+                            per_edge=True)
+    out.update(E=np.asarray(E), B=np.asarray(B),
+               raw=np.asarray(D.make_gs_exchange_probe(m, grid, views=V)(
+                   gl, cam)),
+               raw_m=D.make_gs_exchange_probe(m, grid, views=V,
+                                              per_edge=True)(gl, cam))
+    budgets = {"none": None, "scalar": E, "matrix": B}
+    if "fwd" in checks:
+        for kname, kt in (("dense", None), ("tiered", (4, 8, 16))):
+            fwd(f"gather_{kname}", k_tiers=kt, return_tiles=True)
+            for bname, eb in budgets.items():
+                fwd(f"{bname}_{kname}", k_tiers=kt, return_tiles=True,
+                    exchange=True, exchange_budget=eb)
+    if "tau" in checks:
+        # heavy edges on a derangement: window_assignment leaves the
+        # identity, and which rank renders which band cannot move the loss
+        g_tau = _banded_state(cams, grid, m.axis_size("part"), Pn,
+                              g.means.shape[1] // m.axis_size("part"))
+        gl = D.gs_shard_state(g_tau, m)
+        one = {"gt_tiles": gt_t[:1], "mask_tiles": mask_t[:1],
+               "cam": select(cams, torch.arange(1))}
+        b1 = D.gs_shard_batch(one, m, 1, n_parts=Pn)
+        B_tau = D.probe_gs_exchange(D.ExchangeSchedule(), m, grid, gl,
+                                    b1["cam"], views=1, per_edge=True)
+        out["B_tau"] = np.asarray(B_tau)
+        fwd("gather_tau", b_=b1, views_=1, k_tiers=(4, 8, 16))
+        fwd("tau", b_=b1, views_=1, k_tiers=(4, 8, 16), exchange=True,
+            exchange_budget=B_tau)
+        gl = D.gs_shard_state(g, m)
+    if "starve" in checks:
+        fwd("starved", return_tiles=True, exchange=True, exchange_budget=1)
+        B_st = np.asarray(B).copy()
+        B_st[0, 1] = 1
+        fwd("starved_edge", exchange=True, exchange_budget=B_st)
+    if "pad" in checks:
+        # a strip of 3 tiles over a "part" axis of 2: padded sub-windows
+        pgrid = TileGrid(*pad_grid)
+        from repro_torch.core.cameras import orbital_rig
+        cams_p = orbital_rig(V, (0.5, 0.5, 0.5), 1.6, width=pgrid.width,
+                             height=pgrid.height, device=m.device)
+        zeros = torch.zeros((Pn, V, pgrid.height, pgrid.width, 3))
+        gp, mp = D._tile_view_batches(zeros, None, pgrid)
+        bp = D.gs_shard_batch({"gt_tiles": gp, "mask_tiles": mp,
+                               "cam": select(cams_p, vi)}, m, V,
+                              n_parts=Pn)
+        Bp = D.probe_gs_exchange(D.ExchangeSchedule(), m, pgrid, gl,
+                                 bp["cam"], views=V, per_edge=True)
+        fwd("pad_gather", grid_=pgrid, b_=bp)
+        fwd("pad_none", grid_=pgrid, b_=bp, exchange=True)
+        fwd("pad_matrix", grid_=pgrid, b_=bp, exchange=True,
+            exchange_budget=Bp)
+    if "wire" in checks:
+        for pname, pkw in (("bf16", dict(dtype_policy="bf16")),
+                           ("split", dict(gather_mode="split"))):
+            for kname, kt in (("dense", None), ("tiered", (4, 8, 16))):
+                fwd(f"{pname}_gather_{kname}", k_tiers=kt, return_tiles=True,
+                    **pkw)
+                fwd(f"{pname}_ex_{kname}", k_tiers=kt, return_tiles=True,
+                    exchange=True, exchange_budget=E, **pkw)
+    steps = []
+    if "step" in checks:
+        for kname, kt, akw in (
+                ("dense", None, {}),
+                ("sorted", (4, 8, 16), dict(assign_impl="sorted",
+                                            assign_budget=8))):
+            steps += [(f"step_gather_{kname}", kt, akw),
+                      (f"step_ex_{kname}", kt,
+                       dict(akw, exchange=True, exchange_budget=E))]
+        steps.append(("step_starved", None, dict(exchange=True,
+                                                 exchange_budget=1)))
+    if "wire" in checks:
+        for kname, kt in (("dense", None), ("tiered", (4, 8, 16))):
+            steps += [(f"step_bf16_gather_{kname}", kt,
+                       dict(dtype_policy="bf16")),
+                      (f"step_bf16_ex_{kname}", kt,
+                       dict(dtype_policy="bf16", exchange=True,
+                            exchange_budget=E))]
+    for case, kt, ckw in steps:
+        cfg = GSTrainCfg(K=16, lr_colors=5e-2, **ckw)
+        step = D.make_gs_train_step(m, cfg, grid, meta["extent"], impl="ref",
+                                    views=V, k_tiers=kt,
+                                    return_overflow=True)
+        g1, o1, loss, ov = step(gl, init_opt(gl), b)
+        out[f"{case}_loss"] = np.asarray(float(loss), np.float64)
+        for k, v in _ex_ov(ov).items():
+            out[f"{case}_{k}"] = v
+        g1, o1 = D.gather_partitions((g1, o1), m)
+        if rank == 0:
+            for k in FIELDS:
+                out[f"{case}_g_{k}"] = getattr(g1, k).numpy()
+                out[f"{case}_m_{k}"] = o1.m[k].numpy()
+    np.savez(os.path.join(out_dir, f"{tag}_rank{rank}.npz"), **out)
+
+
+def cli_probe_rank(mesh, argv, out_path):
+    """``cli_rank`` with the calls of ``D.probe_gs_exchange`` counted, the
+    count to ``<out_path>.probes<rank>``."""
+    calls = []
+    real = D.probe_gs_exchange
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    D.probe_gs_exchange = counted
+    try:
+        cli_rank(mesh, argv, out_path)
+    finally:
+        D.probe_gs_exchange = real
+    with open(f"{out_path}.probes{dist.get_rank()}", "w") as f:
+        f.write(str(len(calls)))
+
+
+def card_exchange_rank(mesh, scene_path, out_dir, reps=10):
+    """The sparse-overlap exchange on a ``card_scene`` on this rank's card
+    ("part" mesh), view 0, the CLI's cfg: the probed (n, n) demand and the
+    budgets (scalar, matrix, and a forced one: the demand with every edge
+    (s, s + 1) raised to Nl, which moves the ladder's window assignment
+    off the identity); the forward loss and counters of the gather and of
+    the exchange under each budget; then the transport alone (the uniform
+    all-to-all at the scalar budget and the ladder at the matrix, on the
+    f32 tables), CUDA events (3 calls to warm up, then ``reps`` back to
+    back per event pair), the ranks' max.  Rank 0 writes
+    ``exchange.json``."""
+    from repro_torch.core.tiling import TileGrid
+
+    dev = mesh.device
+    z = torch.load(scene_path, map_location=dev)
+    g = D.gs_shard_state(Gaussians(**z["g"]), mesh)
+    cams = Camera(*z["cam"])
+    grid = TileGrid(*z["grid"])
+    Pn, Nl = g.means.shape[:2]
+    n = mesh.axis_size("part")
+    me = mesh.index("part")
+    cfg = GSTrainCfg()
+    gt_t, mask_t = D._tile_view_batches(z["gts"], z["masks"], grid)
+    vi = torch.arange(1, device=dev)
+    batch = D.gs_shard_batch({"gt_tiles": gt_t[vi], "mask_tiles": mask_t[vi],
+                              "cam": select(cams, vi)}, mesh, 1, n_parts=Pn)
+    del gt_t, mask_t, z
+    cam = batch["cam"]
+    demand = D.make_gs_exchange_probe(mesh, grid, views=1, per_edge=True)(
+        g, cam)
+    E = D.probe_gs_exchange(D.ExchangeSchedule(), mesh, grid, g, cam,
+                            views=1)
+    B = D.probe_gs_exchange(D.ExchangeSchedule(), mesh, grid, g, cam,
+                            views=1, per_edge=True)
+    B_tau = np.maximum(demand, 1)
+    B_tau[np.arange(n), (np.arange(n) + 1) % n] = Nl
+    impl, abudget = D.resolve_assignment_global(
+        mesh, g, cams, grid, assign_impl=cfg.assign_impl,
+        assign_budget=cfg.assign_budget)
+    out = {"demand": demand.tolist(), "E": int(E), "B": B.tolist(),
+           "B_tau": B_tau.tolist(), "Nl": int(Nl), "cases": {}}
+    for name, ex, eb in (("gather", False, None), ("scalar", True, E),
+                         ("matrix", True, B), ("forced", True, B_tau)):
+        sched = cfg.tier_schedule()
+        D.probe_gs_schedule(sched, mesh, grid, g, [cam], views=1,
+                            assign_impl=impl, assign_budget=abudget,
+                            exchange=ex)
+        fwd = D.make_gs_forward(mesh, grid, K=cfg.assign_K, views=1,
+                                k_tiers=sched.k_tiers,
+                                tier_caps=sched.tier_caps, assign_impl=impl,
+                                assign_budget=abudget, return_overflow=True,
+                                exchange=ex, exchange_budget=eb)
+        with torch.no_grad():
+            loss, ov = fwd(g, cam, batch["gt_tiles"], batch["mask_tiles"])
+        out["cases"][name] = {"loss": float(loss),
+                              "overflow": {k: v.tolist()
+                                           for k, v in ov.items()}}
+        if eb is not None and np.ndim(eb) == 2:
+            bm = np.minimum(np.asarray(eb), Nl)
+            tau = D.window_assignment(bm)
+            band = tau[(np.arange(n) + np.arange(n)[:, None]) % n]
+            out["cases"][name]["tau"] = tau.tolist()
+            out["cases"][name]["E_shift"] = [
+                int(bm[np.arange(n), band[k]].max()) for k in range(n)]
+    # the transport alone, on this rank's f32 tables of view 0
+    group = mesh.group(D._axes(mesh).data)
+    with torch.no_grad():
+        splats = D._project_rows(g, cam, True)
+        tabs = [x.reshape((-1,) + tuple(x.shape[2:])).contiguous()
+                for x in D.wire_tables(splats, "f32")]
+        del splats
+        hit = D._exchange_hits(
+            (tabs[0][..., 0], tabs[0][..., 1], tabs[1][..., 0],
+             tabs[1][..., 2] > 0.5), grid, 0, grid.n_tiles,
+            -(-grid.n_tiles // n), n)
+        R = tabs[0].shape[0]
+
+        def timed(fn):
+            for _ in range(3):
+                fn()
+            t = torch.tensor([_event_ms(fn, reps, dev) / reps], device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            return float(t)
+
+        bm = np.minimum(B, Nl)
+        e_shift = out["cases"]["matrix"]["E_shift"]
+        for name, eb, tau in (("all_to_all", E, None),
+                              ("ladder", bm, D.window_assignment(bm))):
+            move = D._pack_exchange(hit, group, me, eb, tau)[0]
+            if tau is None:
+                bufs = [x.new_zeros((n, R, E, x.shape[-1])) for x in tabs]
+
+                def transport():
+                    return [D._all_to_all(b, group) for b in bufs]
+                received = R * (n - 1) * E
+            else:
+                bufs = [[x.new_zeros((R, e_shift[k], x.shape[-1]))
+                         for k in range(1, n)] for x in tabs]
+
+                def transport():
+                    return [D._shift(b, group, k + 1) for t in bufs
+                            for k, b in enumerate(t)]
+                received = R * sum(e_shift[1:])
+            out[name] = {"move_ms": timed(lambda: [move(x) for x in tabs]),
+                         "transport_ms": timed(transport),
+                         "rows_received": received,
+                         "mb_received": received * 76 / 1e6}
+            del bufs
+        out["gather_rows_received"] = R * (n - 1) * Nl
+    if dist.get_rank() == 0:
+        with open(os.path.join(out_dir, "exchange.json"), "w") as f:
+            json.dump(out, f)

@@ -630,3 +630,86 @@ def test_cuda_part_mesh_wire_layouts(cuda, tmp_path):
         print(f"part x4 {tag}: losses {recs[0]['losses'].tolist()}, step ms "
               f"{np.round(ms, 3).tolist()} (median of steps 2-{steps} "
               f"{np.median(ms[1:]):.3f})")
+
+
+def test_cuda_part_mesh_exchange(cuda, tmp_path):
+    """The sparse-overlap exchange across four NCCL cards: the training
+    CLI's two full-size kingsnake partitions (2 x 2.88M slots, 1024x1024,
+    8x16 tiles, 4 views, one a step) on ("part",) x4, each card a quarter
+    of every partition's slots.  View 0's forward under a scalar budget, a
+    probed per-edge matrix and a forced matrix (the demand with each edge
+    (s, s + 1) raised to the whole shard, which moves the window
+    assignment off the identity) equals the all-gather's within the card
+    gate (1e-3 relative) with every counter 0; then the uniform all-to-all
+    and the ladder alone (CUDA events), and ``fit_partitions`` for 5 steps
+    gathered, exchanged (the budget probed per edge) and exchanged with
+    the rows dealt anew every step (``rebalance_every=1``, threshold 0:
+    the CLI's capacity layout puts a partition's dead slots in its last
+    shard, a skew of 1.3 under the default 1.5), losses within 1e-3 of the
+    gathered run's.  ``-s`` prints the cards' name and power limit, the demand
+    matrix, the budgets, each shift's slab rows, the rows received a rank
+    against the all-gather's, the transport ms and each run's step ms."""
+    import json
+    import subprocess
+
+    import _torch_dist
+    import _torch_dist_ranks as ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a ('part',) mesh of 4)")
+    rasterize.build()        # once, before the ranks load it
+    scene = str(tmp_path / "scene.pt")
+    ranks.card_scene(scene, views=4, n_part=4)
+    torch.cuda.empty_cache()
+    steps = 5
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    fit = dict(steps=steps, densify_every=0)
+    runs = (("gather", {}, fit), ("exchange", dict(exchange=True), fit),
+            ("rebalanced", dict(exchange=True),
+             dict(fit, rebalance_every=1, rebalance_threshold=0.0)))
+    jobs = [("card_exchange_rank", (scene, str(tmp_path)))]
+    jobs += [("card_pod_rank", (scene, str(tmp_path), tag, fkw, kw))
+             for tag, kw, fkw in runs]
+    _torch_dist.run_ranks(ranks.jobs_rank, (4,), tmp_path, jobs,
+                          timeout=900.0, device="cuda", axes=("part",))
+    with open(tmp_path / "exchange.json") as f:
+        ex = json.load(f)
+    print(f"part x4 exchange: Nl {ex['Nl']}, demand {ex['demand']}, scalar "
+          f"budget {ex['E']}, matrix {ex['B']}")
+    base = ex["cases"]["gather"]["loss"]
+    for name, c in ex["cases"].items():
+        print(f"part x4 exchange {name}: forward loss {c['loss']:.9f} "
+              f"(gather {base:.9f}), overflow {c['overflow']}"
+              + (f", tau {c['tau']}, E_shift {c['E_shift']}" if "tau" in c
+                 else ""))
+        assert abs(c["loss"] - base) <= 1e-3 * abs(base), (name, c, base)
+        for k in ("tiles", "assign", "exchange", "exchange_edges"):
+            assert np.all(np.asarray(c["overflow"].get(k, 0)) == 0), (name, c)
+    assert ex["cases"]["forced"]["tau"] != list(range(4))
+    for name in ("all_to_all", "ladder"):
+        t = ex[name]
+        print(f"part x4 {name}: {t['rows_received']} rows received a rank "
+              f"({t['mb_received']:.1f} MB at 76 B; the all-gather "
+              f"{ex['gather_rows_received']}), transport "
+              f"{t['transport_ms']:.4f} ms, with the packing "
+              f"{t['move_ms']:.4f} ms")
+        assert 0 < t["rows_received"] <= ex["gather_rows_received"]
+    losses = {}
+    for tag, _, _ in runs:
+        recs = [np.load(tmp_path / f"{tag}_rank{r}.npz") for r in range(4)]
+        for r, z in enumerate(recs):
+            np.testing.assert_array_equal(z["losses"], recs[0]["losses"])
+            fwd, bwd = z["launches"]
+            assert fwd == bwd >= steps, (tag, r, fwd, bwd)
+        losses[tag] = recs[0]["losses"]
+        assert len(losses[tag]) == steps and np.isfinite(losses[tag]).all()
+        ms = recs[0]["step_ms"]
+        print(f"part x4 {tag}: losses {losses[tag].tolist()}, step ms "
+              f"{np.round(ms, 3).tolist()} (median of steps 2-{steps} "
+              f"{np.median(ms[1:]):.3f}), the whole fit_partitions call "
+              f"{float(recs[0]['fit_s']):.3f} s")
+    for tag in ("exchange", "rebalanced"):
+        np.testing.assert_allclose(losses[tag], losses["gather"], rtol=1e-3,
+                                   err_msg=tag)

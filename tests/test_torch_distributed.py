@@ -601,11 +601,12 @@ class _FakeMesh:
                                        ("model", "item 19")])
 def test_unported_axes_raise(axis, item):
     """Item 19 ported the "pod" and "model" axes: ``_axes`` resolves each,
-    and no refusal names the item any more; a mesh without a gaussian axis
+    and no refusal names the item any more (item 18's constant, the last
+    one, went with the exchange's port); a mesh without a gaussian axis
     still raises."""
     ax = D._axes(_FakeMesh(("part", axis), (1, 1)))
     assert getattr(ax, axis) == axis and ax.data == "part"
-    assert item not in D.ITEM_EXCHANGE
+    assert not hasattr(D, "ITEM_EXCHANGE")
     with pytest.raises(ValueError):
         D._axes(_FakeMesh(("view",), (1,)))
 
@@ -633,14 +634,32 @@ def _one_rank_tiles(mesh, **kw):
     (dict(strip_budget=0.5), "item 19"),
     (dict(dtype_policy="bf16"), "item 12")])
 def test_unported_forward_options_raise(kw, item):
-    """Item 18 still raises.  Item 19's ``strip_budget`` is accepted, and
-    at 127/128 (N = 256: every slot kept) the forward equals the
-    unfiltered one at 1e-6.  Item 12's options run and hold the
+    """Item 18's ``exchange`` runs: on one rank its one sub-window is the
+    whole strip, so its tiles and loss equal the all-gather's at 1e-6 (the
+    reference's EXCHANGE_SCRIPT gate) with every counter 0, under the
+    unbudgeted, a scalar and a 1x1 matrix budget (``tests/
+    test_torch_exchange.py`` holds it on gloo meshes).  Item 19's
+    ``strip_budget`` is accepted, and at 127/128 (N = 256: every slot
+    kept) the forward equals the unfiltered one at 1e-6.  Item 12's options run and hold the
     reference's gates against the f32 tables: split its image gate
     (``tests/test_distributed.py:113-119``: 5e-2 max, 2e-3 mean, loss
     2e-3), the bf16 policy its loss gate (``:1235-1240``: 1e-2
     relative) with finite tiles."""
     mesh = _FakeMesh(("pod", "part", "model"), (1, 1, 1))
+    if item == "item 18":
+        loss, tiles = _one_rank_tiles(mesh)
+        for eb in (None, 4 * N, np.array([[N]])):
+            loss_e, tiles_e, ov = _one_rank_tiles(
+                mesh, return_overflow=True, exchange_budget=eb, **kw)
+            assert tiles_e.shape[:3] == (2, 2, TileGrid(*GRID).n_tiles)
+            np.testing.assert_allclose(tiles_e.reshape(tiles.shape), tiles,
+                                       rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(float(loss_e), float(loss),
+                                       rtol=1e-6, atol=1e-7)
+            demand = ov.pop("exchange_demand", None)
+            assert all(int(v.max()) == 0 for v in ov.values()), ov
+            assert demand is None or 0 < int(demand) <= N
+        return
     if item == "item 12":
         loss, tiles = _one_rank_tiles(mesh)
         loss_w, tiles_w = _one_rank_tiles(mesh, **kw)
@@ -662,9 +681,6 @@ def test_unported_forward_options_raise(kw, item):
         # 0.5 keeps 128 of the 256 rows: accepted, not exact
         assert D.strip_rows(N, kw["strip_budget"]) == 128
         assert torch.isfinite(_one_rank_tiles(mesh, **kw)[1]).all()
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        D.make_gs_forward(mesh, TileGrid(*GRID), K=16, **kw)
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -672,14 +688,14 @@ def test_unported_forward_options_raise(kw, item):
     (dict(strip_budget=0.5), "item 19"),
     (dict(grad_compress="int8"), "item 12")])
 def test_train_cfg_knobs_name_their_item(kw, item):
-    """Item 18 still raises; item 19's ``strip_budget`` and item 12's
-    ``gather_mode`` and ``grad_compress`` are settings."""
-    if item in ("item 19", "item 12"):
-        (name, value), = kw.items()
-        assert getattr(ttr.GSTrainCfg(**kw), name) == value
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        ttr.GSTrainCfg(**kw)
+    """Item 18's ``exchange``, item 19's ``strip_budget`` and item 12's
+    ``gather_mode`` and ``grad_compress`` are settings, as in the
+    reference; only item 5's ``coarse`` still raises."""
+    (name, value), = kw.items()
+    assert getattr(ttr.GSTrainCfg(**kw), name) == value == \
+        getattr(jtr.GSTrainCfg(**kw), name), item
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ttr.GSTrainCfg(coarse=4)
 
 
 def test_init_distributed_refuses_cuda_without_card():

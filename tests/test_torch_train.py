@@ -164,13 +164,14 @@ def test_cfg_and_optimizer_state():
         jtr.group_lrs(jtr.GSTrainCfg(), 2.5)
     for kw, err in ((dict(dtype_policy="fp8"), ValueError),
                     (dict(grad_compress="zip"), ValueError),
-                    (dict(coarse=4), NotImplementedError),
-                    (dict(exchange=True), NotImplementedError)):
+                    (dict(coarse=4), NotImplementedError)):
         with pytest.raises(err):
             ttr.GSTrainCfg(**kw)
-    # the distributed step's wire options are settings, as in the reference
+    # the distributed step's wire and exchange options are settings, as in
+    # the reference
     for kw in (dict(grad_compress="int8"), dict(gather_mode="split"),
-               dict(dtype_policy="bf16", grad_compress="bf16")):
+               dict(dtype_policy="bf16", grad_compress="bf16"),
+               dict(exchange=True), dict(exchange=True, exchange_budget=64)):
         assert ttr.GSTrainCfg(**kw) == ttr.GSTrainCfg(**kw)
         for k, v in kw.items():
             assert getattr(ttr.GSTrainCfg(**kw), k) == \
