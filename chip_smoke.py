@@ -117,6 +117,36 @@ Phases (any failure propagates and the script exits nonzero):
              fires the counter with a finite loss, and ``fit_partitions``
              from it (pinned, 4 steps of view 0) grows it past the demand.  Printed:
              step ms, the rows of each table, the packing's own ms.
+9d. time-  the timeseries driver as a user runs it, in-process on a
+   series    world-1 NCCL group: ``launch.train.main(["--gs",
+             "--timeseries", "--dataset", "kingsnake", "--full", "--parts",
+             "2", "--resolution", "1024", "--views", "16", "--timesteps",
+             "2", "--dt", "0.1", "--steps", "30", "--densify-every", "10",
+             "--densify-from", "20", "--densify-cap", C, ...])`` (8x16
+             tiles; C is 256 over the smaller partition's live count), then
+             ``--timesteps 3`` in the same directory, which restarts at
+             timestep 2 from the delta chain.  Gates: t = 0 cold, every
+             later timestep warm with no tier probe before its first step,
+             the restart's warm tree equal to the first run's last commit
+             leaf for leaf, every loss finite, live splats <= max(C, live
+             before) at every densify, both kernels launched, each delta's
+             manifest naming its base step and that base's digest.
+             Printed: step ms per timestep, each timestep's prep seconds in
+             the worker against the main thread's wait in ``get()``, the
+             first-step loss warm against cold, full and delta bytes, peak
+             memory, the final merged PSNR/SSIM.
+9e. coarse  the coarse pre-cull on partition 0 of phase 5's initial state
+             (view 0, 16x16 tiles, T = 4096, sb = 4: S = 256): at a budget
+             of the largest superblock occupancy (counted) equal to the
+             dense sweep on live slots with the counter 0; the auto
+             budget's value and counter; ms of the dense sweep, the
+             pre-cull at both budgets and the sorted assignment; three
+             ``fit_partition`` steps with ``coarse=4, assign_impl="dense"``
+             against ``coarse=None`` (losses within 1e-6 when the counter
+             stays 0, both kernels launched).  Then ``extract_isosurface``
+             on the card on the kingsnake field at t = 0.1 at the full
+             dataset's R: its count and points (in order, 1e-7) are the
+             host extraction's.
 10. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
    ckpt      (16 views, max_batch 8, two passes): the repeat pass all hits,
@@ -2201,6 +2231,379 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
     return total
 
 
+@contextlib.contextmanager
+def observed_timeseries(device, rec):
+    """``launch.train --timeseries`` with, in ``rec``: each
+    ``fit_partitions`` call's events in order ("probe": a tier probe,
+    "step" with its wall ms, "densify" with each partition's live splats
+    before and after) and losses, the ``warm_start`` it was given; the tree
+    each ``save`` / ``save_delta`` of the chain committed; each timestep's
+    prep seconds inside the worker (its stream synchronised) and the
+    seconds the main thread waited in ``TimestepPrefetcher.get``."""
+    from repro_torch.core import pipeline as pl
+
+    rec.update(fits=[], committed={}, prep=[], wait=[])
+    real_fit, real_make = dist_mod.fit_partitions, dist_mod.make_gs_train_step
+    real_densify = dist_mod.densify_and_prune
+    real_probe = TierSchedule.probe_counts
+    real_prep, real_get = train_cli._prep, pl.TimestepPrefetcher.get
+    real_save, real_delta = CheckpointManager.save, CheckpointManager.save_delta
+
+    def events():
+        return rec["fits"][-1]["events"] if rec["fits"] else []
+
+    def make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(*sa):
+            sync(device)
+            t0 = time.perf_counter()
+            out = step(*sa)
+            sync(device)
+            events().append(("step", (time.perf_counter() - t0) * 1e3))
+            return out
+
+        return timed
+
+    def densify(g, opt, *a, **kw):
+        out = real_densify(g, opt, *a, **kw)
+        live = (int(g.active.sum()), int(out[0].active.sum()))
+        events().append(("densify",) + live)
+        return out
+
+    def probe(self, *a, **kw):
+        events().append(("probe",))
+        return real_probe(self, *a, **kw)
+
+    def fit(*a, **kw):
+        rec["fits"].append({"events": [], "warm": kw.get("warm_start")})
+        out = real_fit(*a, **kw)
+        rec["fits"][-1]["losses"] = list(out[2])
+        return out
+
+    def prep(args, cfg, fr, t_idx, dev):
+        t0 = time.perf_counter()
+        td = real_prep(args, cfg, fr, t_idx, dev)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        rec["prep"].append((t_idx, time.perf_counter() - t0))
+        return td
+
+    def get(self):
+        t0 = time.perf_counter()
+        out = real_get(self)
+        rec["wait"].append(time.perf_counter() - t0)
+        return out
+
+    def save(self, step, tree, **kw):
+        if self.root.endswith("timeseries"):
+            rec["committed"][step] = tree
+        return real_save(self, step, tree, **kw)
+
+    def save_delta(self, step, tree, **kw):
+        rec["committed"][step] = tree
+        return real_delta(self, step, tree, **kw)
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, fn in (
+            (dist_mod, "fit_partitions", fit),
+            (dist_mod, "make_gs_train_step", make),
+            (dist_mod, "densify_and_prune", densify),
+            (TierSchedule, "probe_counts", probe),
+            (train_cli, "_prep", prep),
+            (pl.TimestepPrefetcher, "get", get),
+            (CheckpointManager, "save", save),
+            (CheckpointManager, "save_delta", save_delta),
+        ):
+            stack.enter_context(patched(owner, name, fn))
+        yield rec
+
+
+def timeseries_phase(
+    device,
+    tmp,
+    cap,
+    *,
+    dataset="kingsnake",
+    full=True,
+    parts=2,
+    resolution=1024,
+    views=16,
+    timesteps=2,
+    dt=0.1,
+    steps=30,
+    densify_every=10,
+    densify_from=20,
+):
+    """``python -m repro_torch.launch.train --gs --timeseries ...`` (the
+    defaults: the full-size kingsnake scene, 2 timesteps of 30 steps,
+    ``--densify-cap cap``) in-process on a world-1 process group, then a
+    restart with one more timestep in the same directory -> the launches of
+    both runs (both counts set to 0 just before the first and read just
+    after the second).  Gates: timestep 0 cold, every later timestep warm
+    with no tier probe before its first step; the restart's warm tree equal
+    to the first run's committed tree, leaf by leaf; every loss finite;
+    live splats <= max(cap, live before) at every densify; both kernels
+    launched; the delta manifests carry their base step and its digest."""
+    root = tmp / "timeseries"
+    argv = ["--gs", "--timeseries", "--dataset", dataset]
+    argv += ["--full"] if full else []
+    argv += ["--parts", str(parts), "--resolution", str(resolution)]
+    argv += ["--views", str(views), "--dt", str(dt), "--steps", str(steps)]
+    argv += ["--densify-every", str(densify_every), "--densify-from"]
+    argv += [str(densify_from), "--densify-cap", str(cap)]
+    argv += ["--ckpt-dir", str(root), "--device", device]
+    log(
+        f"timeseries: python -m repro_torch.launch.train {' '.join(argv)} "
+        f"--timesteps {timesteps}, then --timesteps {timesteps + 1} (a restart)"
+    )
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    runs = []
+    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    for T in (timesteps, timesteps + 1):
+        rec = {}
+        t0 = time.perf_counter()
+        with observed_timeseries(device, rec):
+            rec["text"] = run_cli(argv + ["--timesteps", str(T)])
+        rec["seconds"] = time.perf_counter() - t0
+        runs.append(rec)
+    launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    first, restart = runs
+    fits = first["fits"] + restart["fits"]
+    if len(fits) != timesteps + 1:
+        raise AssertionError(f"{len(fits)} timesteps trained, want {timesteps + 1}")
+    densify_events = []
+    for t, fit in enumerate(fits):
+        ev = fit["events"]
+        before = ev[: next(i for i, e in enumerate(ev) if e[0] == "step")]
+        probes = sum(e[0] == "probe" for e in before)
+        warm = fit["warm"] is not None
+        if (t == 0) == warm or (warm and probes) or (not warm and not probes):
+            raise AssertionError(f"timestep {t}: warm {warm}, {probes} first probes")
+        losses = np.asarray(fit["losses"])
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"timestep {t}: losses {losses}")
+        for e in ev:
+            if e[0] == "densify":
+                densify_events.append((t,) + e[1:])
+                if e[2] > max(cap, e[1]):
+                    raise AssertionError(f"timestep {t}: densify {e[1:]} past {cap}")
+    if not any(b >= cap or a == cap for _, b, a in densify_events):
+        log(f"timeseries: the cap {cap} held no partition back: {densify_events}")
+    # the restart's warm seed is the first run's last commit, leaf by leaf
+    warm_tree = fits[timesteps]["warm"][0]
+    want = first["committed"][timesteps * steps]
+    if not trees_equal(tuple(warm_tree), tuple(want)):
+        raise AssertionError("the restart's warm tree differs from the committed one")
+    if on_card and not (launches["fwd"] > 0 and launches["bwd"] > 0):
+        raise AssertionError(f"timeseries launches {launches}")
+    chain = root / "timeseries"
+    sizes, deltas = {}, {}
+    for d in sorted(chain.glob("step_*")):
+        step = int(d.name[5:])
+        sizes[step] = dir_bytes(d)
+        man = json.loads((d / "manifest.json").read_text())
+        if step == steps:
+            if "delta" in man:
+                raise AssertionError("the chain head is a delta")
+            continue
+        base = man["delta"]["base_step"]
+        digest = CheckpointManager(str(chain), keep=0)._manifest_digest(base)
+        if base != step - steps or man["delta"]["base_digest"] != digest:
+            raise AssertionError(f"step {step}: delta {man['delta']} ({digest})")
+        deltas[step] = sum(m["delta"] == "rows" for m in man["leaves"])
+    steps_ms = [[e[1] for e in f["events"] if e[0] == "step"] for f in fits]
+    med = [round(statistics.median(s), 3) for s in steps_ms]
+    pattern = r"timestep (\d+) PSNR ([0-9.]+)\s+SSIM ([0-9.]+)"
+    metrics = re.findall(pattern, restart["text"])
+    log(
+        f"timeseries: {timesteps + 1} timesteps x {steps} steps, cap {cap}; median "
+        f"step ms per timestep {med}; first-step loss t=0 cold "
+        f"{fits[0]['losses'][0]:.6f}, t=1 warm {fits[1]['losses'][0]:.6f}; last "
+        f"losses {[round(f['losses'][-1], 6) for f in fits]}; densify (timestep, "
+        f"live before, after) {densify_events}; launches {launches}; peak device "
+        f"memory {peak:.2f} GiB; runs {first['seconds']:.3f} s + "
+        f"{restart['seconds']:.3f} s; final merged {metrics}"
+    )
+    prep = [[(t, round(s, 3)) for t, s in r["prep"]] for r in runs]
+    wait = [[round(s, 3) for s in r["wait"]] for r in runs]
+    log(
+        f"timeseries ingest: prep s in the worker (timestep, s) first run "
+        f"{prep[0]}, restart {prep[1]}; main thread waited in get() "
+        f"{wait[0]} / {wait[1]} s"
+    )
+    log(
+        f"timeseries checkpoints: bytes by step {sizes} (full at {steps}); leaves "
+        f"stored as row diffs {deltas} of {len(tree_flatten(want)[0])}"
+    )
+    for t, (s, fit) in enumerate(zip(steps_ms, fits)):
+        log(f"timeseries timestep {t} step ms {[round(x, 3) for x in s]}")
+        log(f"timeseries timestep {t} losses {[round(x, 6) for x in fit['losses']]}")
+    return launches
+
+
+def coarse_phase(rec, device, *, sb=4, steps=3, reps=2, iso_tier="full"):
+    """The coarse superblock pre-cull on partition 0 of the train phase's
+    full-size scene (its initial state, view 0, 16x16 tiles, assignment
+    depth 64): the exact superblock occupancy counted with a budget of N;
+    ``assign_tiles(coarse=sb)`` at that budget must equal the dense sweep
+    bit for bit on live slots with the counter 0; the auto budget's value
+    and counter recorded; the dense sweep, the pre-cull at both budgets and
+    the sorted assignment timed in turns.  Then ``fit_partition`` for
+    ``steps`` steps with ``GSTrainCfg(coarse=sb, assign_impl="dense")`` and
+    without ``coarse``: losses equal within 1e-6 whenever the counter stayed
+    0, both kernels launched.  Then ``extract_isosurface`` on the card on
+    the kingsnake field at t = 0.1 at the resolution ``point_cloud_for``
+    picks for the ``iso_tier`` dataset: its count equals the host's
+    crossings and its points equal theirs, in order, within 1e-7.  -> the
+    fits' launches (counts set to 0 just before them and read just
+    after)."""
+    from repro_torch.core.tiling import NEG, _coarse_budget, assign_tiles
+    from repro_torch.core.tiling import coarse_candidates
+    from repro_torch.data import isosurface, volumes
+
+    g0, cams, grid, cfg = rec["g0"], rec["cams"], rec["grid"], rec["cfg"]
+    K = max(cfg.resolved_k_tiers() or (cfg.assign_K,))
+    N = g0.capacity
+    S = (-(-grid.nx // sb)) * (-(-grid.ny // sb))
+    cam0 = select(cams, torch.arange(1, device=cams.view.device))
+    with torch.no_grad():
+        splats = project(g0, cam0)
+        splats = type(splats)(*(f[0] for f in splats))
+        cand, ov = coarse_candidates(
+            splats.mean2d, splats.radius, splats.valid, grid, sb=sb, budget=N
+        )
+        occ = (cand < N).sum(1)
+        del cand
+        B = int(occ.max())
+        auto = _coarse_budget(N, S, K, None)
+        impl, budget = resolve_assignment(g0, cam0, grid, assign_impl="sorted")
+        # each variant timed in turns with the others, the fastest call kept
+        variants = {
+            "dense": {},
+            "coarse at max": dict(coarse=sb, coarse_budget=B),
+            "coarse auto": dict(coarse=sb),
+            "sorted": dict(impl=impl, tile_budget=budget),
+        }
+        outs, ms = {}, {k: [] for k in variants}
+        for _ in range(reps):
+            for label, kw in variants.items():
+                sync(device)
+                t0 = time.perf_counter()
+                outs[label] = assign_tiles(
+                    splats, grid, K=K, return_overflow=True, **kw
+                )
+                sync(device)
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+        (di, ds, _), (ci, cs, cov) = outs["dense"], outs["coarse at max"]
+        aov, sov = outs["coarse auto"][2], outs["sorted"][2]
+        dense_ms, coarse_ms, auto_ms, sorted_ms = (min(ms[k]) for k in variants)
+        del outs
+        live = ds > NEG / 2
+        exact = int(cov) == 0 and torch.equal(cs, ds)
+        exact = exact and torch.equal(ci[live], di[live])
+    log(
+        f"coarse: partition 0 view 0, N {N} ({int(g0.active.sum())} live), T "
+        f"{grid.n_tiles} ({grid.tile_h}x{grid.tile_w}), sb {sb} -> S {S}, K {K}; "
+        f"superblock occupancy max {B} mean {float(occ.float().mean()):.1f} "
+        f"(occupied {int((occ > 0).sum())}); budget at the max resolves to "
+        f"{_coarse_budget(N, S, K, B)}; auto budget {auto} overflow {int(aov)}; "
+        f"ms (fastest of {reps}, in turns): dense {dense_ms:.3f}, coarse at max "
+        f"{coarse_ms:.3f}, coarse auto {auto_ms:.3f}, sorted (budget {budget}, "
+        f"overflow {int(sov)}) {sorted_ms:.3f}; all runs {ms}"
+    )
+    if int(ov) != 0 or not exact:
+        raise AssertionError(f"coarse at budget {B}: overflow {int(cov)}, {exact}")
+    del di, ds, ci, cs, live, splats
+
+    # fit_partition with and without the pre-cull, dense assignment
+    fits = {}
+    real_make = train_mod.make_train_step
+    gts, masks = rec["gts"], rec["masks"]
+    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    for label, coarse in (("coarse", sb), ("dense", None)):
+        counters = []
+
+        def make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def counted(*sa, **sk):
+                out = step(*sa, **sk)
+                counters.append(int(out[3]["assign"]))
+                return out
+
+            return counted
+
+        fcfg = dataclasses.replace(cfg, coarse=coarse, assign_impl="dense")
+        f0, b0 = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        sync(device)
+        t0 = time.perf_counter()
+        with patched(train_mod, "make_train_step", make):
+            _, _, losses = train_mod.fit_partition(
+                g0, cams, gts, masks, fcfg, steps=steps, extent=rec["extent"],
+                grid=grid,
+            )
+        sync(device)
+        fits[label] = dict(
+            losses=losses,
+            counters=counters,
+            s=time.perf_counter() - t0,
+            fwd=rasterize.LAUNCHES - f0,
+            bwd=rasterize.BWD_LAUNCHES - b0,
+        )
+    launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    log(f"coarse fit_partition ({steps} steps, assign_impl dense): {fits}")
+    c, d = fits["coarse"], fits["dense"]
+    if not all(np.isfinite(c["losses"] + d["losses"])):
+        raise AssertionError(f"coarse fit losses {fits}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not all(f["fwd"] > 0 and f["bwd"] > 0 for f in fits.values()):
+        raise AssertionError(f"coarse fit launches {fits}")
+    gap = max(abs(a - b) for a, b in zip(c["losses"], d["losses"]))
+    if not any(c["counters"]):
+        if gap > 1e-6:
+            raise AssertionError(f"coarse fit losses differ by {gap}, counter 0")
+        log(f"coarse fit: counter 0 every step, largest loss gap {gap:.3e}")
+    else:
+        log(
+            f"coarse fit: the auto budget dropped candidates {c['counters']} (no "
+            f"loss gate); largest loss gap {gap:.3e}"
+        )
+
+    # extract_isosurface on the card against the host extraction
+    ds_iso = get_gs_dataset("kingsnake", iso_tier)
+    R = isosurface.resolution_for(ds_iso.volume, ds_iso.n_points)
+    t0 = time.perf_counter()
+    field, iso = volumes.make_volume(ds_iso.volume, R, t=0.1)
+    host = isosurface.crossing_points(field, iso)
+    host_s = time.perf_counter() - t0
+    dev_field = torch.from_numpy(field).to(device)
+    del field
+    times = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        pts, count = isosurface.extract_isosurface(
+            dev_field, iso, max_points=len(host) + 1000
+        )
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    err = float((pts[: len(host)].cpu() - torch.from_numpy(host)).abs().max())
+    padded = bool((pts[len(host) :] == pts[0]).all())
+    log(
+        f"extract_isosurface: kingsnake R {R} t 0.1 on {device}: count "
+        f"{int(count)}, host crossings {len(host)}, max |point - host| "
+        f"{err:.3e}, {min(times):.3f} ms (host make_volume + extraction "
+        f"{host_s:.3f} s)"
+    )
+    if int(count) != len(host) or err > 1e-7 or not padded:
+        raise AssertionError(f"extract_isosurface: {int(count)} vs {len(host)}, {err}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument(
@@ -2295,6 +2698,7 @@ def main(argv=None):
         resume_launches = resume_phase(records[0], device, tmp / "resume")
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"resume: peak device memory {peak:.2f} GiB")
+        part0 = records[0]  # the coarse phase's state
         del records, result
         torch.cuda.empty_cache()
 
@@ -2310,7 +2714,17 @@ def main(argv=None):
         wire_launches = wire_phase(cli_rec, device)
         # 9c. the sparse-overlap exchange on the same mesh and state
         ex_launches = exchange_phase(cli_rec, device)
+        # the densify cap: 256 splats over the smaller partition's live
+        # count at t = 0, so it holds both partitions back
+        cap = int(cli_rec["g0"].active.sum(1).min()) + 256
         del cli_rec
+        torch.cuda.empty_cache()
+        # 9d. the timeseries driver through the CLI, and a restart
+        ts_launches = timeseries_phase(device, tmp, cap)
+        torch.cuda.empty_cache()
+        # 9e. the coarse pre-cull and extract_isosurface
+        coarse_launches = coarse_phase(part0, device)
+        del part0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
@@ -2333,13 +2747,16 @@ def main(argv=None):
         f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; mesh axes fwd "
         f"{axes_launches['fwd']} bwd {axes_launches['bwd']}; wire fwd "
         f"{wire_launches['fwd']} bwd {wire_launches['bwd']}; exchange fwd "
-        f"{ex_launches['fwd']} bwd {ex_launches['bwd']}; serve from "
+        f"{ex_launches['fwd']} bwd {ex_launches['bwd']}; timeseries fwd "
+        f"{ts_launches['fwd']} bwd {ts_launches['bwd']}; coarse fwd "
+        f"{coarse_launches['fwd']} bwd {coarse_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
     fwd_launches += axes_launches["fwd"] + wire_launches["fwd"]
     fwd_launches += ex_launches["fwd"] + ckpt_serve_launches
+    fwd_launches += ts_launches["fwd"] + coarse_launches["fwd"]
     kernels = [
         {
             "name": "rasterize_fwd",
@@ -2361,7 +2778,7 @@ def main(argv=None):
             "replaces": "src/repro/kernels/rasterize.py:169",
             "launches": train_launches["bwd"] + resume_launches["bwd"]
             + cli_launches["bwd"] + axes_launches["bwd"] + wire_launches["bwd"]
-            + ex_launches["bwd"],
+            + ex_launches["bwd"] + ts_launches["bwd"] + coarse_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

@@ -6,14 +6,16 @@
 
 Port of ``repro.core.pipeline`` (``PipelineCfg``, ``PipelineResult``,
 ``build_scene``, ``gt_gaussians``, ``init_partition_gaussians``,
-``coverage_masks``, ``render_views``, ``run_pipeline``).  Renders and masks
-stay on the device as tensors; ``PipelineResult`` carries the images as
-host numpy arrays, as the reference does.  ``prepare_timestep`` and
-``TimestepPrefetcher`` come with the timeseries slice.
+``coverage_masks``, ``render_views``, ``run_pipeline``, and the timeseries
+driver's ingest: ``TimestepData``, ``prepare_timestep``,
+``TimestepPrefetcher``).  Renders and masks stay on the device as tensors;
+``PipelineResult`` carries the images as host numpy arrays, as the
+reference does.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
 import warnings
@@ -36,6 +38,7 @@ from repro_torch.core.tiling import (DEFAULT_ASSIGN_IMPL, TileGrid,
                                      auto_tier_caps)
 from repro_torch.core.train import GSTrainCfg, fit_partition
 from repro_torch.data.isosurface import point_cloud_for
+from repro_torch.runtime.checkpoint import tree_flatten
 
 
 @dataclasses.dataclass
@@ -114,6 +117,8 @@ def coverage_masks(part_cov, *, threshold: float = 1.0 / 255.0,
 
 def render_views(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
                  impl: str = "auto", bg: float = 1.0, batch: int = 8,
+                 coarse: Optional[int] = None,
+                 coarse_budget: Optional[int] = None,
                  k_tiers: Optional[tuple] = None,
                  tier_caps: Optional[tuple] = None,
                  assign_impl: str = DEFAULT_ASSIGN_IMPL,
@@ -128,8 +133,10 @@ def render_views(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
     ``tier_caps`` are never altered and a RuntimeWarning reports tiles they
     dropped.  When the sorted assignment is in play and no budget is
     given, ``resolve_assignment`` probes the whole rig's bbox counts
-    first.  (The reference's ``schedule=`` knob has no caller there and is
-    not ported.)"""
+    first.  ``coarse``/``coarse_budget`` turn on the dense sweep's
+    superblock pre-cull, in the probe and the renders alike.  (The
+    reference's ``schedule=`` knob has no caller there and is not
+    ported.)"""
     assign_impl, assign_budget = resolve_assignment(
         g, cams, grid, assign_impl=assign_impl, assign_budget=assign_budget)
     V = cams.view.shape[0]
@@ -141,6 +148,7 @@ def render_views(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
         if tier_caps is None:
             first = select(cams, torch.arange(batch, device=dev))
             occ0 = occupancy_probe(g, first, grid, K=k_tiers[-1],
+                                   coarse=coarse,
                                    assign_impl=assign_impl,
                                    assign_budget=assign_budget)
             tier_caps = auto_tier_caps(occ0, k_tiers, slack=1.25)
@@ -149,6 +157,7 @@ def render_views(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
     def rfn(cc):
         with torch.no_grad():
             return render_batch(g, cc, grid, K=K, impl=impl, bg=bg,
+                                coarse=coarse, coarse_budget=coarse_budget,
                                 k_tiers=k_tiers, tier_caps=tier_caps,
                                 assign_impl=assign_impl,
                                 assign_budget=assign_budget)
@@ -176,6 +185,133 @@ def render_views(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
         rgbs.append(out.rgb)
         covs.append(out.coverage)
     return torch.cat(rgbs), torch.cat(covs)
+
+
+@dataclasses.dataclass
+class TimestepData:
+    """Everything the distributed driver consumes for one timestep."""
+    t: float
+    points: np.ndarray
+    colors: np.ndarray
+    extent: float
+    parts: List[PartitionData]
+    g0: Gaussians            # fresh batched (P, N) init: the cold-start
+    #                          state AND the restore / warm template
+    gts: torch.Tensor        # (P, V, H, W, 3) bg = 0 training targets
+    masks: Optional[torch.Tensor]   # (P, V, H, W) bool, or None
+
+
+def _stack(parts):
+    """Per-partition Gaussians -> one batched (P, N) Gaussians."""
+    return type(parts[0])(*(torch.stack(fs) for fs in zip(*parts)))
+
+
+def prepare_timestep(ds: GSDataset, cams: Camera, grid: TileGrid, *,
+                     t: float = 0.0, seed: int = 0, n_parts: int = 2,
+                     capacity: int, K: int = 48, use_ghost: bool = True,
+                     use_mask: bool = True, device="cuda",
+                     scene=None) -> TimestepData:
+    """One timestep's ingest: extraction -> partition (+ ghosts) -> fresh
+    equal-capacity (P, N) init -> each partition's bg = 0 GT renders ->
+    coverage masks, on ``cams``' device.
+
+    The rig and grid are FIXED across a series (built once from the t = 0
+    scene), so every timestep's GT tensors share one shape; ``capacity`` is
+    series-constant too (the warm-started state keeps its (P, N) layout),
+    and a partition that outgrows it raises a ValueError rather than
+    dropping points.  ``scene`` is ``build_scene(ds, seed, t=t)``'s
+    (points, colors, extent) when the caller already has it.  The training
+    CLI's ``--gs`` prep is this call at t = 0."""
+    dev = check_device(device)
+    points, colors, extent = scene if scene is not None \
+        else build_scene(ds, seed, t=t)
+    ghost_w = ds.ghost_frac * extent if use_ghost else 0.0
+    parts, _ = partition_points(points, colors, n_parts, ghost_width=ghost_w)
+    over = [(pd.part_id, len(pd.points)) for pd in parts
+            if len(pd.points) > capacity]
+    if over:
+        raise ValueError(
+            f"timestep t={t}: partition(s) {over} exceed the series "
+            f"capacity {capacity} — raise the dataset capacity_factor (the "
+            "(P, N) layout is fixed across the series by the warm-started "
+            "state)")
+    g0 = _stack([init_partition_gaussians(pd, capacity=capacity, device=dev)
+                 for pd in parts])
+    gts, masks = [], []
+    for pd in parts:
+        part_gt, part_cov = render_views(
+            gt_gaussians(pd.points, pd.colors, device=dev), cams, grid, K=K,
+            bg=0.0)
+        gts.append(part_gt)
+        if use_mask:
+            masks.append(coverage_masks(part_cov))
+        del part_cov
+    return TimestepData(
+        t=t, points=points, colors=colors, extent=extent, parts=parts,
+        g0=g0, gts=torch.stack(gts),
+        masks=torch.stack(masks) if use_mask else None)
+
+
+class TimestepPrefetcher:
+    """One-slot background ingest: ``submit`` schedules a call (a
+    ``prepare_timestep``) on a single worker thread, ``get`` blocks for and
+    clears the result and re-raises the worker's exception.  While timestep
+    t trains, the worker extracts, partitions and renders t + 1.  One slot
+    is deliberate: a second would hold another (P, V, H, W, 3) GT tensor
+    for no latency win.
+
+    On a CUDA ``device`` the worker runs on its own stream (the kernels
+    launch on the calling thread's current stream); ``get`` makes the
+    caller's current stream wait for the worker's work, and records that
+    stream on every tensor of the result, so the caching allocator does not
+    hand their blocks to the worker's stream while the caller still uses
+    them."""
+
+    def __init__(self, device="cuda"):
+        self.device = check_device(device)
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._fut = None
+
+    def _run(self, fn, args, kwargs):
+        if self._stream is None:
+            return fn(*args, **kwargs), None
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            out = fn(*args, **kwargs)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return out, done
+
+    def submit(self, fn, /, *args, **kwargs):
+        if self._fut is not None:
+            raise RuntimeError("prefetch slot already occupied — get() the "
+                               "pending timestep first")
+        self._fut = self._pool.submit(self._run, fn, args, kwargs)
+
+    def get(self):
+        if self._fut is None:
+            raise RuntimeError("nothing prefetched — submit() first")
+        fut, self._fut = self._fut, None
+        out, done = fut.result()
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            tree = vars(out) if dataclasses.is_dataclass(out) else out
+            for x in tree_flatten(tree)[0]:
+                if isinstance(x, torch.Tensor) and x.is_cuda:
+                    x.record_stream(stream)
+        return out
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 def _sync(device):

@@ -18,7 +18,10 @@ reference stop-gradients them).  ``render_batch``, ``assign_tables`` and
 ``view_occupancy`` are the paths the reference runs under ``jit`` /
 ``vmap``, so their sorted-assignment budget follows the reference's traced
 rule (``exact_budget=False``; see core/tiling.py); ``render`` and
-``render_tiles`` follow its eager rule.  The coarse pre-cull is not ported.
+``render_tiles`` follow its eager rule.  ``coarse=`` / ``coarse_budget=``
+turn on the coarse superblock pre-cull of the dense sweep (see
+``tiling.assign_tiles``; "sorted" ignores them); its drops count in
+``assign_overflow``.
 """
 
 from __future__ import annotations
@@ -75,6 +78,8 @@ def _assign(splats: Splats2D, grid: TileGrid, **kw):
 
 
 def _gather_feats(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int,
+                  coarse: Optional[int] = None,
+                  coarse_budget: Optional[int] = None,
                   block: int = 4096,
                   assign_impl: str = DEFAULT_ASSIGN_IMPL,
                   assign_budget: Optional[int] = None,
@@ -83,6 +88,8 @@ def _gather_feats(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int,
     -> (tile_feats (T, K, F), idx (T, K), score (T, K), assign_ov ())."""
     splats = project(g, cam)
     idx, score, assign_ov = _assign(splats, grid, K=K, block=block,
+                                    coarse=coarse,
+                                    coarse_budget=coarse_budget,
                                     impl=assign_impl,
                                     tile_budget=assign_budget)
     feats = cast_tables(gather_features_at(splat_features(splats), idx,
@@ -102,10 +109,13 @@ def _view(splats: Splats2D, v: int) -> Splats2D:
 
 
 def _assign_views(splats: Splats2D, grid: TileGrid, *, K: int, block: int,
-                  assign_impl: str, assign_budget: Optional[int]):
+                  assign_impl: str, assign_budget: Optional[int],
+                  coarse: Optional[int] = None,
+                  coarse_budget: Optional[int] = None):
     """Per-view assignment of (V, N) splats under the traced budget rule ->
     (idx (V, T, K), score (V, T, K), assign_ov (V,))."""
     outs = [_assign(_view(splats, v), grid, K=K, block=block,
+                    coarse=coarse, coarse_budget=coarse_budget,
                     impl=assign_impl, tile_budget=assign_budget,
                     exact_budget=False)
             for v in range(splats.depth.shape[0])]
@@ -193,11 +203,15 @@ def _resolve_tiers(k_tiers, tier_caps, score):
 
 
 def _render_tiles_tiered(g, cam, grid, *, impl, k_tiers, tier_caps,
+                         coarse: Optional[int] = None,
+                         coarse_budget: Optional[int] = None,
                          assign_impl: str = DEFAULT_ASSIGN_IMPL,
                          assign_budget: Optional[int] = None,
                          dtype_policy: str = "f32"):
     splats = project(g, cam)
     idx, score, assign_ov = _assign(splats, grid, K=tuple(k_tiers)[-1],
+                                    coarse=coarse,
+                                    coarse_budget=coarse_budget,
                                     impl=assign_impl,
                                     tile_budget=assign_budget)
     k_tiers, tier_caps = _resolve_tiers(k_tiers, tier_caps, score)
@@ -214,7 +228,8 @@ def _render_tiles_tiered(g, cam, grid, *, impl, k_tiers, tier_caps,
 
 
 def render_tiles(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int = 64,
-                 impl: str = "auto",
+                 impl: str = "auto", coarse: Optional[int] = None,
+                 coarse_budget: Optional[int] = None,
                  k_tiers: Optional[Sequence[int]] = None,
                  tier_caps: Optional[Sequence[int]] = None,
                  assign_impl: str = DEFAULT_ASSIGN_IMPL,
@@ -227,7 +242,8 @@ def render_tiles(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int = 64,
     ignored."""
     if k_tiers is None:
         feats, idx, score, _ = _gather_feats(
-            g, cam, grid, K=K, assign_impl=assign_impl,
+            g, cam, grid, K=K, coarse=coarse, coarse_budget=coarse_budget,
+            assign_impl=assign_impl,
             assign_budget=assign_budget, dtype_policy=dtype_policy)
         tiles = rasterize_tiles(feats, tile_origins(grid, feats.device),
                                 tile_h=grid.tile_h, tile_w=grid.tile_w,
@@ -235,13 +251,15 @@ def render_tiles(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int = 64,
         return tiles, idx, score
     tiles, idx, score, _, _ = _render_tiles_tiered(
         g, cam, grid, impl=impl, k_tiers=k_tiers, tier_caps=tier_caps,
-        assign_impl=assign_impl, assign_budget=assign_budget,
-        dtype_policy=dtype_policy)
+        coarse=coarse, coarse_budget=coarse_budget, assign_impl=assign_impl,
+        assign_budget=assign_budget, dtype_policy=dtype_policy)
     return tiles, idx, score
 
 
 def render(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int = 64,
            impl: str = "auto", bg: float = 1.0,
+           coarse: Optional[int] = None,
+           coarse_budget: Optional[int] = None,
            k_tiers: Optional[Sequence[int]] = None,
            tier_caps: Optional[Sequence[int]] = None,
            assign_impl: str = DEFAULT_ASSIGN_IMPL,
@@ -251,10 +269,12 @@ def render(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int = 64,
     is white).  ``k_tiers`` switches to occupancy-tiered rasterization (K
     is then ignored; ``tier_caps`` None sizes the caps from this scene) and
     fills ``RenderOut.overflow``.  ``assign_impl``/``assign_budget`` pick
-    the tile-assignment algorithm (see core.tiling.assign_tiles)."""
+    the tile-assignment algorithm and ``coarse``/``coarse_budget`` the
+    dense sweep's pre-cull (see core.tiling.assign_tiles)."""
     if k_tiers is None:
         feats, _, _, assign_ov = _gather_feats(
-            g, cam, grid, K=K, assign_impl=assign_impl,
+            g, cam, grid, K=K, coarse=coarse, coarse_budget=coarse_budget,
+            assign_impl=assign_impl,
             assign_budget=assign_budget, dtype_policy=dtype_policy)
         tiles = rasterize_tiles(feats, tile_origins(grid, feats.device),
                                 tile_h=grid.tile_h, tile_w=grid.tile_w,
@@ -263,14 +283,16 @@ def render(g: Gaussians, cam: Camera, grid: TileGrid, *, K: int = 64,
         return out._replace(assign_overflow=assign_ov)
     tiles, _, _, plan, assign_ov = _render_tiles_tiered(
         g, cam, grid, impl=impl, k_tiers=k_tiers, tier_caps=tier_caps,
-        assign_impl=assign_impl, assign_budget=assign_budget,
-        dtype_policy=dtype_policy)
+        coarse=coarse, coarse_budget=coarse_budget, assign_impl=assign_impl,
+        assign_budget=assign_budget, dtype_policy=dtype_policy)
     out = _composite(untile_image(tiles, grid), bg)
     return out._replace(overflow=plan.overflow, assign_overflow=assign_ov)
 
 
 def render_batch(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int = 64,
                  impl: str = "auto", bg: float = 1.0,
+                 coarse: Optional[int] = None,
+                 coarse_budget: Optional[int] = None,
                  assign_block: Optional[int] = None,
                  k_tiers: Optional[Sequence[int]] = None,
                  tier_caps: Optional[Sequence[int]] = None,
@@ -282,14 +304,16 @@ def render_batch(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int = 64,
     rasterizer runs ONE flattened (V*T,) launch -- or, with ``k_tiers``,
     one flattened (V * cap_i,) launch per tier, each view binned on its own
     under shared caps (``RenderOut.overflow`` is then (V,)).  Returns rgb
-    (V, H, W, 3), coverage (V, H, W) and assign_overflow (V,)."""
+    (V, H, W, 3), coverage (V, H, W) and assign_overflow (V,), which counts
+    the coarse pre-cull's drops under ``coarse``."""
     V = cams.view.shape[0]
     block = assign_block or max(1024, 4096 // max(V, 1))
     splats = project(g, cams)                                  # (V, N)
     Kq = K if k_tiers is None else tuple(k_tiers)[-1]
     idx, score, assign_ov = _assign_views(
         splats, grid, K=Kq, block=block, assign_impl=assign_impl,
-        assign_budget=assign_budget)
+        assign_budget=assign_budget, coarse=coarse,
+        coarse_budget=coarse_budget)
     if k_tiers is None:
         feats = cast_tables(gather_features_at(splat_features(splats), idx,
                                                score), dtype_policy)
@@ -343,6 +367,7 @@ def render_batch_tables(g: Gaussians, cams: Camera, grid: TileGrid,
 
 
 def assign_tables(g: Gaussians, cams: Camera, grid: TileGrid, K: int, *,
+                  coarse: Optional[int] = None,
                   assign_impl: str = DEFAULT_ASSIGN_IMPL,
                   assign_budget: Optional[int] = None):
     """Assignment-TABLE extraction for a view batch: ``-> (idx (V, T, K),
@@ -352,7 +377,7 @@ def assign_tables(g: Gaussians, cams: Camera, grid: TileGrid, K: int, *,
     with torch.no_grad():
         return _assign_views(project(g, cams), grid, K=K, block=block,
                              assign_impl=assign_impl,
-                             assign_budget=assign_budget)
+                             assign_budget=assign_budget, coarse=coarse)
 
 
 def max_tile_count(g: Gaussians, cams: Camera, grid: TileGrid, *,
@@ -392,6 +417,8 @@ def resolve_assignment(g: Gaussians, cams: Camera, grid: TileGrid, *,
 
 
 def view_occupancy(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
+                   coarse: Optional[int] = None,
+                   coarse_budget: Optional[int] = None,
                    assign_block: Optional[int] = None,
                    assign_impl: str = DEFAULT_ASSIGN_IMPL,
                    assign_budget: Optional[int] = None):
@@ -402,12 +429,15 @@ def view_occupancy(g: Gaussians, cams: Camera, grid: TileGrid, *, K: int,
     with torch.no_grad():
         _, score, _ = _assign_views(project(g, cams), grid, K=K, block=block,
                                     assign_impl=assign_impl,
-                                    assign_budget=assign_budget)
+                                    assign_budget=assign_budget,
+                                    coarse=coarse,
+                                    coarse_budget=coarse_budget)
     return tile_occupancy(score)
 
 
 #: the standard occupancy probe for tier-cap sizing (the input of
 #: ``TierSchedule.probe``), called with the same assignment impl and budget
 #: as the step it sizes caps for: the eager counterpart of the reference's
-#: ``occupancy_probe_jit(grid, K, None, assign_impl, assign_budget)(g, cams)``
+#: ``occupancy_probe_jit(grid, K, coarse, assign_impl, assign_budget)(g,
+#: cams)``
 occupancy_probe = view_occupancy

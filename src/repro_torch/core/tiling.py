@@ -24,10 +24,16 @@ exact rule.
 Occupancy tiers (``tile_occupancy``, ``tile_tiers``,
 ``bin_tiles_by_occupancy``, the cap sizers and ``TierSchedule``) are the
 reference's, with host-side numpy where the reference reads concrete
-values.  Not ported yet: the coarse superblock pre-cull (``coarse=``).
+values.
+
+The coarse superblock pre-cull (``assign_tiles(coarse=sb)``, dense only)
+culls each sb x sb tile superblock's candidates with one circle/rect pass
+and runs the exact per-tile test against those survivors; the port loops
+over blocks where the reference scans them, with the same ``(cand,
+overflow)`` and the same ``(idx, score)`` on live slots.
 
 Shape glossary: N splats, T tiles (grid.n_tiles), K per-tile list depth,
-V views.
+V views, S superblocks of the coarse pre-cull.
 """
 
 from __future__ import annotations
@@ -105,23 +111,184 @@ def topk_by_score_then_index(cat_s, cat_i, K: int):
     return torch.gather(s, -1, sel), torch.gather(i, -1, sel)
 
 
+# ---------------------------------------------------------------------------
+# Coarse superblock pre-cull
+# ---------------------------------------------------------------------------
+
+
+def superblock_bounds(grid: TileGrid, sb: int, device):
+    """Bounds of sb x sb tile superblocks on ``device``: (S, 2) lo / hi
+    pixel rects, float32, row-major.  The last row / column may extend past
+    the image: the coarse test is conservative."""
+    sx = (grid.nx + sb - 1) // sb
+    sy = (grid.ny + sb - 1) // sb
+    syi, sxi = torch.meshgrid(torch.arange(sy, device=device),
+                              torch.arange(sx, device=device), indexing="ij")
+    lo = torch.stack([sxi.reshape(-1) * grid.tile_w * sb,
+                      syi.reshape(-1) * grid.tile_h * sb], -1) \
+        .to(torch.float32)
+    hi = lo + torch.tensor([grid.tile_w * sb, grid.tile_h * sb],
+                           dtype=torch.float32, device=device)
+    return lo, hi
+
+
+def coarse_candidates(mean2d, radius, valid, grid: TileGrid, *, sb: int,
+                      budget: int, block: int = 4096):
+    """Per-superblock candidate splat lists via one circle/rect pass.
+
+    -> (cand (S, budget) int32, overflow () int32).  ``cand`` holds
+    indices into the splat table in table order, N (one past the end) in
+    the slots past a superblock's occupancy.  A superblock holding more
+    than ``budget`` splats drops its HIGHEST-indexed ones (table order, not
+    depth order); ``overflow`` counts exactly those dropped (superblock,
+    splat) pairs, 0 when the cull is exact.  Blockwise over the splats:
+    O(S * block) temporaries, each block's hits compacted to their columns
+    with one cumsum and one scatter."""
+    dev = mean2d.device
+    lo, hi = superblock_bounds(grid, sb, dev)             # (S, 2)
+    N, S = mean2d.shape[0], lo.shape[0]
+    block = min(block, max(N, 1))
+    count = torch.zeros((S,), dtype=torch.int64, device=dev)
+    # overflow and non-hits land in scratch column ``budget``, cut below
+    cand = torch.full((S, budget + 1), N, dtype=torch.int32, device=dev)
+    for b0 in range(0, N, block):
+        mx, my = mean2d[b0:b0 + block, 0], mean2d[b0:b0 + block, 1]
+        rd = radius[b0:b0 + block]
+        cx = torch.clamp(mx[None, :], lo[:, :1], hi[:, :1])   # (S, block)
+        cy = torch.clamp(my[None, :], lo[:, 1:], hi[:, 1:])
+        dx = mx[None, :] - cx
+        dy = my[None, :] - cy
+        hit = ((dx * dx + dy * dy) <= (rd * rd)[None, :]) \
+            & valid[None, b0:b0 + block]
+        pos = torch.where(hit, count[:, None] + torch.cumsum(hit, 1) - 1,
+                          budget).clamp(max=budget)
+        idx = torch.arange(b0, b0 + mx.shape[0], dtype=torch.int32,
+                           device=dev)
+        cand.scatter_(1, pos, idx.expand(S, -1))
+        count += hit.sum(1)
+    overflow = (count - budget).clamp(min=0).sum().to(torch.int32)
+    return cand[:, :budget], overflow
+
+
+def _coarse_budget(N: int, S: int, K: int, budget) -> int:
+    """Resolve the per-superblock candidate budget (see assign_tiles)."""
+    if budget is None:
+        # 4x headroom over uniform splat -> superblock occupancy; below 8
+        # superblocks the radius halo rivals a superblock: exact (N)
+        budget = N if S < 8 else max(4 * K, -(-4 * N // S))
+    budget = min(max(int(budget), K), N)
+    budget = -(-budget // 128) * 128 if budget >= 128 else budget
+    return min(budget, N)
+
+
+def _assign_tiles_coarse(splats: Splats2D, grid: TileGrid, *, K: int,
+                         block: int, sb: int, budget: int):
+    """The exact circle/rect top-K restricted to coarse-pass survivors ->
+    (idx (T, K), score (T, K), overflow ()), as ``assign_tiles``.  Work
+    drops from O(T * N) to O(S * N + T * budget): each superblock's
+    candidates are gathered once and its sb * sb tile slots tested against
+    them, then scattered back to row-major tile order."""
+    dev = splats.mean2d.device
+    N = splats.mean2d.shape[0]
+    sx = (grid.nx + sb - 1) // sb
+    sy = (grid.ny + sb - 1) // sb
+    S, sb2 = sx * sy, sb * sb
+    cand, overflow = coarse_candidates(splats.mean2d, splats.radius,
+                                       splats.valid, grid, sb=sb,
+                                       budget=budget, block=block)
+    M = cand.shape[1]
+    cb = min(block, M)
+
+    def take(arr, fill):
+        # the sentinel N reads the appended fill row (an invalid splat)
+        pad = arr.new_full((1,) + tuple(arr.shape[1:]), fill)
+        return torch.cat([arr, pad])[cand.long()]          # (S, M, ...)
+
+    mean_c = take(splats.mean2d, 0.0)
+    rad_c = take(splats.radius, 0.0)
+    depth_c = take(splats.depth, 1e30)
+    valid_c = take(splats.valid, False)
+
+    # tile-slot rects per superblock, (S, sb2, 2); slots past the image
+    # edge are dead weight, dropped by the scatter-back
+    syi, sxi = torch.meshgrid(torch.arange(sy, device=dev),
+                              torch.arange(sx, device=dev), indexing="ij")
+    jy, jx = torch.meshgrid(torch.arange(sb, device=dev),
+                            torch.arange(sb, device=dev), indexing="ij")
+    ty = syi.reshape(-1, 1) * sb + jy.reshape(-1)           # (S, sb2)
+    tx = sxi.reshape(-1, 1) * sb + jx.reshape(-1)
+    lo_sb = torch.stack([tx * grid.tile_w, ty * grid.tile_h], -1) \
+        .to(torch.float32)
+    hi_sb = lo_sb + torch.tensor([grid.tile_w, grid.tile_h],
+                                 dtype=torch.float32, device=dev)
+
+    top_s = torch.full((S, sb2, K), NEG, dtype=torch.float32, device=dev)
+    top_i = torch.zeros((S, sb2, K), dtype=torch.int32, device=dev)
+    for c0 in range(0, M, cb):
+        mb = mean_c[:, c0:c0 + cb]                          # (S, cb, 2)
+        rb, db = rad_c[:, c0:c0 + cb], depth_c[:, c0:c0 + cb]
+        cx = torch.clamp(mb[:, None, :, 0], lo_sb[..., :1], hi_sb[..., :1])
+        cy = torch.clamp(mb[:, None, :, 1], lo_sb[..., 1:], hi_sb[..., 1:])
+        dx = mb[:, None, :, 0] - cx                         # (S, sb2, cb)
+        dy = mb[:, None, :, 1] - cy
+        hit = (dx * dx + dy * dy) <= (rb * rb)[:, None, :]
+        hit = hit & valid_c[:, None, c0:c0 + cb]
+        score = torch.where(hit, -db[:, None, :], NEG)
+        ci = cand[:, None, c0:c0 + cb].expand(S, sb2, -1)
+        top_s, top_i = topk_by_score_then_index(
+            torch.cat([top_s, score], -1), torch.cat([top_i, ci], -1), K)
+
+    # scatter back: tile t (row-major) lives at slot (sbid, (ty%sb)*sb+tx%sb)
+    tyf, txf = torch.meshgrid(torch.arange(grid.ny, device=dev),
+                              torch.arange(grid.nx, device=dev),
+                              indexing="ij")
+    pos = (((tyf // sb) * sx + txf // sb) * sb2
+           + (tyf % sb) * sb + txf % sb).reshape(-1)        # (T,)
+    score = top_s.reshape(S * sb2, K)[pos]
+    idx = top_i.reshape(S * sb2, K)[pos]
+    # empty slots (score NEG) carry a safe in-range index
+    idx = torch.where(score > NEG / 2, idx, torch.zeros_like(idx))
+    return idx, score, overflow
+
+
 def assign_tiles(splats: Splats2D, grid: TileGrid, *, K: int = 64,
-                 block: int = 4096, return_overflow: bool = False,
+                 block: int = 4096, coarse: Optional[int] = None,
+                 coarse_budget: Optional[int] = None,
+                 return_overflow: bool = False,
                  impl: str = "dense", tile_budget: Optional[int] = None,
                  exact_budget: bool = True):
     """Top-K front-most gaussians per tile, for one view's (N,) splats.
 
     -> (idx (T, K) int32 into the splat table, score (T, K) float32; NEG
     marks empty slots, whose idx is 0), plus the () int32 count of
-    candidates dropped past the sorted path's budget when
-    ``return_overflow``.  ``impl`` is "auto" | "dense" | "sorted" (see
-    ``resolve_assign_impl``); ``exact_budget`` see the module docstring.
+    candidates dropped past a budget when ``return_overflow`` (the sorted
+    path's per-splat budget, or the coarse pre-cull's).  ``impl`` is
+    "auto" | "dense" | "sorted" (see ``resolve_assign_impl``);
+    ``exact_budget`` see the module docstring.
+
+    ``coarse=sb`` (dense only: "sorted" ignores it) first culls sb x sb
+    tile superblocks to candidate lists of ``coarse_budget`` splats (auto:
+    N when there are fewer than 8 superblocks, else max(4K, ceil(4N/S)),
+    rounded up to 128), then runs the exact test against those survivors.
+    With a budget at or above every superblock's occupancy the result
+    equals the dense sweep on live slots; past it the highest-INDEXED
+    candidates drop and the counter says how many.  A resolved budget of N
+    or more culls nothing, so the dense sweep runs directly.
     """
     if resolve_assign_impl(impl, grid.n_tiles, tile_budget) == "sorted":
         idx, score, ov = assign_tiles_sorted(
             splats, grid, K=K, tile_budget=tile_budget, return_overflow=True,
             exact_budget=exact_budget)
         return (idx, score, ov) if return_overflow else (idx, score)
+    if coarse is not None and coarse > 1:
+        N = splats.mean2d.shape[0]
+        S = (-(-grid.nx // coarse)) * (-(-grid.ny // coarse))
+        budget = _coarse_budget(N, S, K, coarse_budget) if N else 0
+        if 0 < budget < N:
+            idx, score, ov = _assign_tiles_coarse(
+                splats, grid, K=K, block=block, sb=coarse, budget=budget)
+            return (idx, score, ov) if return_overflow else (idx, score)
+        # budget >= N (or an empty table): the dense sweep
     dev = splats.mean2d.device
     lo, hi = tile_bounds(grid, dev)                  # (T, 2)
     N = splats.mean2d.shape[0]

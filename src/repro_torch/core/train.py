@@ -13,11 +13,14 @@ differentiates the loss with ``torch.autograd.grad`` -- through the CUDA
 ``rasterize_bwd`` kernel on the card -- and returns NEW gaussians and
 optimizer state, leaving its inputs untouched.
 
-Not ported yet: the coarse pre-cull's knob (``coarse``), which raises
-naming its ROADMAP item.  The distributed step's ``gather_mode``,
-``grad_compress``, ``exchange`` and ``exchange_budget`` are settings this
-single-device trainer ignores, as the reference's does; its checkpoints
-record ``grad_compress`` beside ``dtype_policy``.
+``coarse`` turns on the dense sweep's superblock pre-cull in the step
+and the tier probe; it needs ``assign_impl="dense"`` ("auto" resolves to
+"sorted" on large grids, which ignores it), and its drops count in the
+"assign" counter, which grows only the sorted budget.  The distributed
+step ignores ``coarse``, and this trainer ignores the distributed step's
+``gather_mode``, ``grad_compress``, ``exchange`` and
+``exchange_budget``, as the reference's do; its checkpoints record
+``grad_compress`` beside ``dtype_policy``.
 """
 
 from __future__ import annotations
@@ -37,13 +40,6 @@ from repro_torch.core.render import (occupancy_probe, render_batch,
                                      resolve_assignment)
 from repro_torch.core.tiling import (DEFAULT_TILE_BUDGET, TierSchedule,
                                      TileGrid, grow_tile_budget)
-
-#: knobs of parts not ported yet -> (the default that is supported, the
-#: ROADMAP queue 1 item that ports the part)
-_MISSING_KNOBS = {
-    "coarse": (None, "item 5 (the coarse superblock pre-cull)"),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class GSTrainCfg:
@@ -104,12 +100,6 @@ class GSTrainCfg:
             raise ValueError(
                 f"unknown grad_compress {self.grad_compress!r}; expected "
                 "'none', 'bf16' or 'int8'")
-        for name, (default, item) in _MISSING_KNOBS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"GSTrainCfg.{name}={getattr(self, name)!r}: that part "
-                    f"is not ported yet (ROADMAP queue 1, {item}); leave it "
-                    f"at {default!r}")
 
     def resolved_k_tiers(self) -> Optional[Tuple[int, ...]]:
         """The active K ladder, or None for dense rasterization."""
@@ -216,7 +206,8 @@ def loss_and_grads(cfg: GSTrainCfg, grid: TileGrid, g: Gaussians,
     cam, gt, mask = _as_view_batch(cam, gt, mask)
     with torch.enable_grad():
         out = render_batch(g.with_trainable(tr), cam, grid, K=cfg.assign_K,
-                           impl=cfg.impl, bg=cfg.bg, k_tiers=k_tiers,
+                           impl=cfg.impl, bg=cfg.bg, coarse=cfg.coarse,
+                           k_tiers=k_tiers,
                            tier_caps=tier_caps, assign_impl=assign_impl,
                            assign_budget=assign_budget,
                            dtype_policy=cfg.dtype_policy)
@@ -517,7 +508,7 @@ def fit_partition(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
 
     def reprobe(gg):
         sched.probe(occupancy_probe(gg, select(cams, probe_vi), grid,
-                                    K=sched.kmax,
+                                    K=sched.kmax, coarse=cfg.coarse,
                                     assign_impl=assign["impl"],
                                     assign_budget=assign["budget"]))
 

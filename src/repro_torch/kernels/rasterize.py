@@ -20,7 +20,10 @@ inner loop from its SASS, for the issue-rate ceiling.
 
 ``rasterize_fwd`` / ``rasterize_bwd`` take CUDA tensors only; the plain
 PyTorch versions live in ``kernels/ref.py`` and the dispatcher
-(``kernels/ops.py``) picks between them by the tensors' device.
+(``kernels/ops.py``) picks between them by the tensors' device.  The
+build, the first load and the launch counts are guarded by one lock, so
+two threads (a training loop and the timeseries ingest worker) may make
+their first calls at once.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -63,6 +67,8 @@ BWD_VALUES = 32
 ROW_BYTES = 48
 
 _libs = None
+#: one build / load at a time, and whole count updates
+_LOCK = threading.RLock()
 
 
 class LaunchGeometry(NamedTuple):
@@ -131,6 +137,11 @@ def build(*, verbose: bool = False) -> dict:
     ``nvcc`` processes started together, and return {name: library path}.
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
     (registers, shared memory, spills)."""
+    with _LOCK:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> dict:
     digest = _digest()
     libs = {name: BUILD_DIR / f"{name}_{digest}.so" for name in SOURCES}
     todo = [n for n, lib in libs.items() if verbose or not lib.exists()]
@@ -208,20 +219,25 @@ def hot_loop(sass_text: str, function: str) -> dict:
     return count
 
 
+def _bind(paths: dict) -> dict:
+    """The built libraries' C entry points, typed for ctypes."""
+    fwd = ctypes.CDLL(str(paths["rasterize_fwd"])).rasterize_fwd_launch
+    fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    bwd = ctypes.CDLL(str(paths["rasterize_bwd"])).rasterize_bwd_launch
+    bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def _load():
     global _libs
-    if _libs is None:
-        paths = build()
-        fwd = ctypes.CDLL(str(paths["rasterize_fwd"])).rasterize_fwd_launch
-        fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        fwd.restype = ctypes.c_int
-        bwd = ctypes.CDLL(str(paths["rasterize_bwd"])).rasterize_bwd_launch
-        bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        bwd.restype = ctypes.c_int
-        _libs = {"fwd": fwd, "bwd": bwd}
-    return _libs
+    with _LOCK:
+        if _libs is None:
+            _libs = _bind(build())
+        return _libs
 
 
 def _check_tiles(name, feats, origins, tile_h, tile_w):
@@ -270,7 +286,8 @@ def rasterize_fwd(feats, origins, *, tile_h: int, tile_w: int):
     if err != 0:
         raise RuntimeError(f"rasterize_fwd: CUDA launch failed with error "
                            f"{err}")
-    LAUNCHES += 1
+    with _LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -311,5 +328,6 @@ def rasterize_bwd(feats, origins, out, gout, *, tile_h: int, tile_w: int):
     if err != 0:
         raise RuntimeError(f"rasterize_bwd: CUDA launch failed with error "
                            f"{err}")
-    BWD_LAUNCHES += 1
+    with _LOCK:
+        BWD_LAUNCHES += 1
     return gfeats

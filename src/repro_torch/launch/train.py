@@ -25,9 +25,16 @@ the checkpoints); a resume under another setting of either exits naming
 both.  ``--exchange`` swaps the "part" all-gather for the sparse-overlap
 exchange (its budget probed, or pinned by ``--exchange-budget``, and
 restored by a resume); ``--rebalance-every N`` deals live splats evenly
-over the "part" ranks every N steps.  The LM mode and the timeseries
-driver are not ported: their flags exit with an error naming the ROADMAP
-item.
+over the "part" ranks every N steps.
+
+``--timeseries`` trains timesteps t = 0..T-1 (``--timesteps``) of the
+evolving volume, sampled ``--dt`` apart: each timestep warm-starts from
+the previous one's committed state (tier and exchange schedules restored,
+no init probe) under ``--densify-cap``, commits a delta checkpoint to
+``<ckpt>/timeseries``, and has its successor's ingest prepared on a
+worker thread (``pipeline.TimestepPrefetcher``) while it trains; a
+restart resumes at the last committed timestep.  The LM mode is not
+ported (ROADMAP queue 1 item 20).
 """
 
 from __future__ import annotations
@@ -48,25 +55,52 @@ from repro_torch.core import merge as merge_mod
 from repro_torch.core import metrics
 from repro_torch.core.cameras import orbital_rig
 from repro_torch.core.partition import partition_points
-from repro_torch.core.pipeline import (build_scene, coverage_masks,
-                                       gt_gaussians,
-                                       init_partition_gaussians,
+from repro_torch.core.pipeline import (TimestepPrefetcher, build_scene,
+                                       gt_gaussians, prepare_timestep,
                                        render_views)
 from repro_torch.core.tiling import TileGrid
-from repro_torch.core.train import GSTrainCfg, _check_resume_policy
+from repro_torch.core.train import (GSTrainCfg, _check_resume_policy,
+                                    init_opt)
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.runtime.checkpoint import CheckpointManager, quantize_cold
-
-#: flags of parts not ported yet -> the ROADMAP queue 1 item that owns them
-_MISSING_FLAGS = {
-    "timeseries": "item 15 (prepare_timestep, TimestepPrefetcher, "
-                  "--timeseries)",
-}
+from repro_torch.runtime.checkpoint import (CheckpointManager, quantize_cold,
+                                            tree_map)
 
 
-def _stack(parts):
-    """Per-partition Gaussians -> one batched (P, N) Gaussians."""
-    return type(parts[0])(*(torch.stack(fs) for fs in zip(*parts)))
+def _smoke(args):
+    """``--smoke``: a tiny full-lifecycle config -- 2 partitions, a small
+    scene, densify mid-run so the probe -> train -> densify -> re-probe
+    loop (and a checkpointed schedule) runs end to end; ``--steps`` /
+    ``--ckpt-dir`` stay the caller's, so a second invocation resumes."""
+    args.dataset = "sphere_shell"
+    args.parts = 2
+    args.resolution = min(args.resolution, 32)
+    args.views = args.views or 4
+    args.view_batch = args.view_batch or 2
+    if args.densify_every == 0:
+        args.densify_every, args.densify_from = 2, 1
+
+
+def _cfg(args) -> GSTrainCfg:
+    return GSTrainCfg(view_batch=args.view_batch or 1,
+                      exchange=args.exchange,
+                      exchange_budget=args.exchange_budget,
+                      dtype_policy=args.dtype_policy,
+                      grad_compress=args.grad_compress)
+
+
+def _mesh(args, cfg: GSTrainCfg, n_views: int, world: int):
+    """``--mesh PxV``, or the widest "view" axis the effective minibatch
+    supports with the rest on "part" -> (mesh, p, v)."""
+    if args.mesh:
+        p, v = (int(x) for x in args.mesh.lower().split("x"))
+        if p * v != world:
+            raise SystemExit(f"--mesh {args.mesh} needs {p * v} ranks, have "
+                             f"{world} (run with torchrun --nproc-per-node "
+                             f"{p * v})")
+    else:
+        v = math.gcd(max(1, min(cfg.view_batch, n_views)), world)
+        p = world // v
+    return mesh_mod.make_mesh((p, v), ("part", "view")), p, v
 
 
 def run_gs(args):
@@ -79,39 +113,14 @@ def run_gs(args):
             print(msg, flush=True)
 
     if args.smoke:
-        # tiny full-lifecycle config: 2 partitions, small scene, densify
-        # mid-run so the probe -> train -> densify -> re-probe loop (and a
-        # checkpointed schedule) runs end to end; --steps / --ckpt-dir stay
-        # the caller's, so a second invocation exercises the resume
-        args.dataset = "sphere_shell"
-        args.parts = 2
-        args.resolution = min(args.resolution, 32)
-        args.views = args.views or 4
-        args.view_batch = args.view_batch or 2
-        if args.densify_every == 0:
-            args.densify_every, args.densify_from = 2, 1
+        _smoke(args)
         if args.ckpt_every == 0:
             args.ckpt_every = 2
 
-    cfg = GSTrainCfg(view_batch=args.view_batch or 1,
-                     exchange=args.exchange,
-                     exchange_budget=args.exchange_budget,
-                     dtype_policy=args.dtype_policy,
-                     grad_compress=args.grad_compress)
+    cfg = _cfg(args)
     n_views = args.views or get_gs_dataset(
         args.dataset, "full" if args.full else "cpu").n_views
-    if args.mesh:
-        p, v = (int(x) for x in args.mesh.lower().split("x"))
-        if p * v != world:
-            raise SystemExit(f"--mesh {args.mesh} needs {p * v} ranks, have "
-                             f"{world} (run with torchrun --nproc-per-node "
-                             f"{p * v})")
-    else:
-        # the widest "view" axis the effective minibatch supports; the
-        # rest go to "part"
-        v = math.gcd(max(1, min(cfg.view_batch, n_views)), world)
-        p = world // v
-    mesh = mesh_mod.make_mesh((p, v), ("part", "view"))
+    mesh, p, v = _mesh(args, cfg, n_views, world)
     sc = gs_scene(args, cfg, p, dev)
     parts, points, colors, extent = sc.parts, sc.points, sc.colors, sc.extent
     center, radius, grid, cams = sc.center, sc.radius, sc.grid, sc.cams
@@ -175,18 +184,17 @@ def run_gs(args):
     return 0
 
 
-def gs_scene(args, cfg: GSTrainCfg, n_part: int, dev):
-    """The CLI's training inputs from its flags (``--dataset``, ``--full``,
-    ``--seed``, ``--parts``, ``--resolution``, ``--views``,
-    ``--no-ghost``, ``--no-mask``, ``--densify-every``): the isosurface
-    scene, its partitions with ghost cells, the orbital rig, the batched
-    (P, N) initial gaussians (capacity x the dataset's factor when
-    densifying, a multiple of ``n_part``) and each partition's GT renders
-    and coverage masks at bg = 0 (the distributed tile loss compares raw
-    premultiplied color tiles) -> a namespace of them."""
+def series_frame(args, cfg: GSTrainCfg, n_part: int, dev):
+    """The frame a run keeps fixed, from its flags and the t = 0 scene:
+    the dataset, the view count, the t = 0 scene (points, colors, extent),
+    its centre and orbit radius, the tile grid, the orbital rig and the
+    capacity of the batched (P, N) layout (the largest partition with its
+    ghost cells, x the dataset's ``capacity_factor`` when densifying,
+    rounded up to a multiple of ``n_part``) -> a namespace of them."""
     ds = get_gs_dataset(args.dataset, "full" if args.full else "cpu")
     n_views = args.views or ds.n_views
-    points, colors, extent = build_scene(ds, args.seed)
+    scene = build_scene(ds, args.seed)
+    points, colors, extent = scene
     center = 0.5 * (points.max(0) + points.min(0))
     radius = 1.6 * extent / 2 + 1e-3
     W = H = args.resolution
@@ -199,35 +207,56 @@ def gs_scene(args, cfg: GSTrainCfg, n_part: int, dev):
     base = max(len(pd.points) for pd in parts)
     cap = int(base * ds.capacity_factor) if args.densify_every else base
     cap = -(-cap // n_part) * n_part          # "part"-shardable capacity
-    g = _stack([init_partition_gaussians(pd, capacity=cap, device=dev)
-                for pd in parts])
-    gts, masks = [], []
-    for pd in parts:
-        part_gt, part_cov = render_views(
-            gt_gaussians(pd.points, pd.colors, device=dev), cams, grid,
-            K=cfg.K, bg=0.0)
-        gts.append(part_gt)
-        if not args.no_mask:
-            masks.append(coverage_masks(part_cov))
-        del part_cov
+    return types.SimpleNamespace(ds=ds, n_views=n_views, scene=scene,
+                                 center=center, radius=radius, grid=grid,
+                                 cams=cams, capacity=cap)
+
+
+def _prep(args, cfg: GSTrainCfg, fr, t_idx: int, dev):
+    """``prepare_timestep`` of timestep ``t_idx`` (t = t_idx * --dt) in
+    the frame ``fr``."""
+    return prepare_timestep(
+        fr.ds, fr.cams, fr.grid, t=t_idx * args.dt, seed=args.seed,
+        n_parts=args.parts, capacity=fr.capacity, K=cfg.K,
+        use_ghost=not args.no_ghost,
+        use_mask=not args.no_mask, device=dev,
+        scene=fr.scene if t_idx == 0 else None)
+
+
+def gs_scene(args, cfg: GSTrainCfg, n_part: int, dev):
+    """The CLI's training inputs from its flags (``--dataset``, ``--full``,
+    ``--seed``, ``--parts``, ``--resolution``, ``--views``,
+    ``--no-ghost``, ``--no-mask``, ``--densify-every``): ``series_frame``
+    and ``prepare_timestep`` at t = 0 -- the isosurface scene, its
+    partitions with ghost cells, the orbital rig, the batched (P, N)
+    initial gaussians and each partition's GT renders and coverage masks
+    at bg = 0 (the distributed tile loss compares raw premultiplied color
+    tiles) -> a namespace of them."""
+    fr = series_frame(args, cfg, n_part, dev)
+    td = _prep(args, cfg, fr, 0, dev)
     return types.SimpleNamespace(
-        parts=parts, points=points, colors=colors, extent=extent,
-        center=center, radius=radius, grid=grid, cams=cams, g=g,
-        gts=torch.stack(gts),
-        masks=None if args.no_mask else torch.stack(masks))
+        parts=td.parts, points=td.points, colors=td.colors,
+        extent=td.extent, center=fr.center, radius=fr.radius, grid=fr.grid,
+        cams=fr.cams, g=td.g0, gts=td.gts, masks=td.masks)
 
 
 def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
-                   center, radius, extent, n_views, done, dev):
+                   center, radius, extent, n_views, done, dev, *,
+                   tag="[train-gs]", series=None):
     """Rank 0: per-partition checkpoints, merge, render, metrics, the merged
-    checkpoint and the final render."""
+    checkpoint and the final render.  ``series`` ({"timestep", "t"} of a
+    timeseries run's final timestep) labels the metrics and rides the
+    checkpoints' extras: the timestep in the partitions', both in the
+    merged one's."""
     part_list = [type(g_all)(*(f[i] for f in g_all))
                  for i in range(args.parts)]
     pckpt = CheckpointManager(os.path.join(args.ckpt_dir, "partitions"),
                               keep=2)
+    part_extra = {"dataset": args.dataset}
+    if series:
+        part_extra["timestep"] = series["timestep"]
     for pid, gp in enumerate(part_list):
-        pckpt.save(done, gp, partition=pid,
-                   extra={"dataset": args.dataset})
+        pckpt.save(done, gp, partition=pid, extra=part_extra)
 
     merged = merge_mod.merge_partitions(part_list,
                                         [pd.part_id for pd in parts])
@@ -238,7 +267,8 @@ def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
                         for i in range(n_views)]))
     ss = float(np.mean([float(metrics.ssim(renders[i], gt_imgs[i]))
                         for i in range(n_views)]))
-    print(f"[train-gs] PSNR {ps:.2f}  SSIM {ss:.4f}  "
+    label = f"timestep {series['timestep']} " if series else ""
+    print(f"{tag} {label}PSNR {ps:.2f}  SSIM {ss:.4f}  "
           f"gaussians {int(merged.active.sum()):,}", flush=True)
 
     # train->serve handoff: the MERGED model as its own checkpoint with the
@@ -250,17 +280,156 @@ def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
         "extent": float(extent), "n_views": int(n_views), "K": int(cfg.K),
         "tile_h": int(cfg.tile_h), "tile_w": int(cfg.tile_w),
     }}
+    merged_extra.update(series or {})
     merged_save = merged
     if args.ckpt_quantize == "int8":
         merged_save, quant_meta = quantize_cold(merged)
         merged_extra["quant"] = quant_meta
-        print("[train-gs] merged checkpoint cold attributes quantized "
+        print(f"{tag} merged checkpoint cold attributes quantized "
               f"(int8, fields={list(quant_meta['fields'])})", flush=True)
     mckpt.save(done, merged_save, extra=merged_extra)
     np.save(os.path.join(args.ckpt_dir, "render_final.npy"),
             renders.cpu().numpy())
-    print(f"[train-gs] merged checkpoint (step {done}) + final render "
+    print(f"{tag} merged checkpoint (step {done}) + final render "
           f"saved under {args.ckpt_dir}", flush=True)
+
+
+def run_gs_timeseries(args):
+    """``--gs --timeseries``: timesteps t = 0..T-1 of the evolving volume on
+    this rank -> 0.  Each timestep warm-starts ``fit_partitions`` from the
+    previous one's committed state (restored TierSchedule caps and
+    ExchangeSchedule budgets, no init probe), commits a full checkpoint
+    (timestep 0) or a delta against the previous timestep to
+    ``<ckpt>/timeseries``, and has the next timestep's ingest prefetched on
+    a worker thread meanwhile.  A restart resumes at the last committed
+    timestep.  Rank 0 prints and writes; every rank restores."""
+    rank, world, dev = mesh_mod.init_distributed(args.device)
+    rank0 = rank == 0
+
+    def say(msg):
+        if rank0:
+            print(msg, flush=True)
+
+    if args.smoke:
+        _smoke(args)
+        args.timesteps = min(args.timesteps, 2)
+        if args.densify_cap is None:
+            args.densify_cap = 4096
+
+    cfg = _cfg(args)
+    T, S = args.timesteps, args.steps
+    n_views = args.views or get_gs_dataset(
+        args.dataset, "full" if args.full else "cpu").n_views
+    mesh, p, v = _mesh(args, cfg, n_views, world)
+    # the series-fixed frame: rig, grid and capacity come from the t = 0
+    # scene, so every timestep shares one (P, N) / (P, V, H, W) layout --
+    # the warm-started state and the delta diffs both depend on it.  The
+    # capacity_factor slack covers densify growth AND the extraction's
+    # drift over the series (prepare_timestep raises past it).
+    fr = series_frame(args, cfg, p, dev)
+    say(f"[train-gs-ts] dataset={args.dataset} timesteps={T} dt={args.dt} "
+        f"steps/timestep={S} parts={args.parts} res={args.resolution} "
+        f"mesh={p}x{v} ({world} ranks, {mesh_mod.backend_for(dev)} on "
+        f"{dev.type}) capacity={fr.capacity} "
+        f"densify_cap={args.densify_cap} dtype={cfg.dtype_policy} "
+        f"grad-compress={cfg.grad_compress}")
+
+    # the delta chain: one keep=0 manager (a delta needs its whole base
+    # chain), a full save at timestep 0, per-field row diffs after it
+    tck = CheckpointManager(os.path.join(args.ckpt_dir, "timeseries"),
+                            keep=0)
+    latest = tck.latest_restorable_step()
+    t_start = 0 if latest is None else latest // S
+    if t_start:
+        say(f"[train-gs-ts] restarting at timestep {t_start} "
+            f"(chain committed through step {latest})")
+
+    def like(td):
+        return (td.g0, init_opt(td.g0))
+
+    warm = None           # (host state tree, extra, global step)
+    td = g_all = None
+    with TimestepPrefetcher(dev) as pf:
+        if t_start < T:
+            pf.submit(_prep, args, cfg, fr, t_start, dev)
+        for t in range(t_start, T):
+            td = pf.get()
+            if t + 1 < T:
+                # streaming ingest: t + 1's prep overlaps t's training
+                pf.submit(_prep, args, cfg, fr, t + 1, dev)
+            if warm is None and t > 0:
+                # the restart: the warm seed from the committed delta chain
+                warm = (*tck.restore_delta(t * S, like(td), device="cpu"),
+                        t * S)
+            if t > 0:
+                src = warm[1].get("timestep", t - 1)
+                say(f"[train-gs-ts] timestep {t}: warm-start from "
+                    f"timestep {src} (step {warm[2]}) — schedule + "
+                    "exchange restored, no init probe")
+            else:
+                say("[train-gs-ts] timestep 0: cold start")
+
+            sched = cfg.tier_schedule()
+            ex = dist_mod.ExchangeSchedule(budget=cfg.exchange_budget) \
+                if cfg.exchange else None
+            # a fresh generator each timestep: fit_partitions fast-forwards
+            # it over the densify events before the warm step, so the split
+            # noise is a continuous run's
+            generator = torch.Generator(device=dev).manual_seed(args.seed)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            g1, o1, losses = dist_mod.fit_partitions(
+                td.g0, fr.cams, td.gts, td.masks, cfg, mesh=mesh,
+                steps=(t + 1) * S, extent=td.extent, generator=generator,
+                densify_every=args.densify_every,
+                # series-absolute, so the fast-forward replays exactly the
+                # densify events a continuous run would have had
+                densify_from=args.densify_from, grid=fr.grid,
+                schedule=sched, exchange_schedule=ex,
+                rebalance_every=args.rebalance_every,
+                log_every=args.log_every, warm_start=warm,
+                densify_cap=args.densify_cap)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt_s = time.perf_counter() - t0
+            # commit the timestep (every rank gathers; rank 0 writes)
+            g_all, o_all = dist_mod.gather_partitions((g1, o1), mesh)
+            del g1, o1
+            live = int(g_all.active.sum())
+            say(f"[train-gs-ts] timestep {t} (t={td.t:.3f}): steps "
+                f"{t * S}->{(t + 1) * S} ({dt_s:.1f}s)  final loss "
+                f"{losses[-1]:.4f}  live splats {live:,}")
+            tree = tree_map(lambda x: x.cpu(), (g_all, o_all))
+            del o_all
+            extra = {"timestep": t, "t": float(td.t),
+                     "schedule": sched.state_dict() if sched else None,
+                     "exchange": ex.state_dict() if ex else None,
+                     "dtype_policy": cfg.dtype_policy,
+                     "grad_compress": cfg.grad_compress}
+            if rank0:
+                if t == 0:
+                    tck.save(S, tree, extra=extra)
+                else:
+                    tck.save_delta((t + 1) * S, tree, base_step=t * S,
+                                   extra=extra)
+            torch.distributed.barrier()
+            warm = (tree, extra, (t + 1) * S)
+
+    if g_all is None:
+        # the chain is complete: the final timestep for the merge below
+        td = _prep(args, cfg, fr, T - 1, dev)
+        (g_all, _), _ = tck.restore_delta(T * S, like(td), device=dev)
+        say(f"[train-gs-ts] chain already complete at timestep {T - 1}; "
+            "skipping to merge")
+    td.gts = td.masks = None          # the merge renders its own
+    if rank0:
+        _write_outputs(args, g_all, td.parts, td.points, td.colors, fr.cams,
+                       fr.grid, cfg, fr.center, fr.radius, td.extent,
+                       fr.n_views, T * S, dev, tag="[train-gs-ts]",
+                       series={"timestep": T - 1, "t": float(td.t)})
+    torch.distributed.barrier()
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -284,9 +453,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--densify-every", type=int, default=0)
     ap.add_argument("--densify-from", type=int, default=100)
     ap.add_argument("--densify-cap", type=int, default=None,
-                    help="ceiling on LIVE splats per partition, for "
-                         "--timeseries (not ported); --gs ignores it, as "
-                         "the reference does")
+                    help="--timeseries: ceiling on LIVE splats per "
+                         "partition (densify stops growing at it, so memory "
+                         "stays bounded across timesteps; default "
+                         "uncapped); --gs ignores it, as the reference "
+                         "does")
     ap.add_argument("--no-ghost", action="store_true")
     ap.add_argument("--no-mask", action="store_true")
     ap.add_argument("--ckpt-quantize", default="none",
@@ -320,26 +491,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rebalance-every", type=int, default=0,
                     help="check per-shard live-splat skew every N steps "
                          "and permute rows to rebalance (0 = off)")
-    # flags of parts not ported yet: accepted so they can be refused by name
-    ap.add_argument("--timeseries", action="store_true")
+    ap.add_argument("--timeseries", action="store_true",
+                    help="train timesteps t=0..T-1 of the evolving volume; "
+                         "each warm-starts from the previous one's "
+                         "committed state (restored schedules, no init "
+                         "probe), with delta checkpoints between timesteps "
+                         "and the next timestep's ingest prefetched during "
+                         "training")
+    ap.add_argument("--timesteps", type=int, default=4,
+                    help="number of timesteps T for --timeseries")
+    ap.add_argument("--dt", type=float, default=0.1,
+                    help="time between timesteps (the volume evolves as "
+                         "t = index * dt)")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for name, item in _MISSING_FLAGS.items():
-        if getattr(args, name):
-            flag = "--" + name.replace("_", "-")
-            print(f"[train] {flag}: not ported yet (ROADMAP queue 1, "
-                  f"{item})", file=sys.stderr)
-            return 2
     if not args.gs:
         print("[train] only the GS mode (--gs) is ported; the LM mode is "
               "ROADMAP queue 1 item 20", file=sys.stderr)
         return 2
     owns_group = not torch.distributed.is_initialized()
     try:
-        return run_gs(args)
+        return run_gs_timeseries(args) if args.timeseries else run_gs(args)
     finally:
         if owns_group:
             mesh_mod.destroy_distributed()

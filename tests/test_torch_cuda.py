@@ -322,6 +322,80 @@ def _tiny_fit(dev):
     return g, cams, torch.full((2, 32, 32, 3), 0.5, device=dev), cfg
 
 
+def test_cuda_prefetcher_side_stream_renders_equal(cuda):
+    """``prepare_timestep`` run by ``TimestepPrefetcher`` on its own stream
+    gives the GT renders and masks of the same call on the main stream,
+    bit for bit, while the main stream is kept busy; the forward kernel
+    launched from the worker."""
+    from repro_torch.configs.gs_datasets import get_gs_dataset
+    from repro_torch.core import pipeline as tpl
+    from repro_torch.core.cameras import orbital_rig
+    from repro_torch.core.tiling import TileGrid
+
+    ds = get_gs_dataset("sphere_shell", "cpu")
+    pts, _, ext = tpl.build_scene(ds, 0)
+    center = 0.5 * (pts.max(0) + pts.min(0))
+    cams = orbital_rig(4, center, 1.6 * ext / 2 + 1e-3, width=64, height=64,
+                       device=cuda)
+    grid = TileGrid(64, 64, 8, 16)
+    kw = dict(t=0.1, n_parts=2, capacity=1500, K=16, device=cuda)
+    main = tpl.prepare_timestep(ds, cams, grid, **kw)
+    busy = torch.randn(2048, 2048, device=cuda)
+    f0 = rasterize.LAUNCHES
+    with tpl.TimestepPrefetcher(cuda) as pf:
+        pf.submit(tpl.prepare_timestep, ds, cams, grid, **kw)
+        for _ in range(20):
+            busy = busy @ busy / 2048.0
+        side = pf.get()
+    assert rasterize.LAUNCHES > f0
+    assert torch.equal(side.gts, main.gts)
+    assert torch.equal(side.masks, main.masks)
+    for a, b in zip(side.g0, main.g0):
+        assert torch.equal(a, b)
+    assert torch.isfinite(busy).all()
+
+
+def test_cuda_coarse_assignment_matches_dense(cuda):
+    """``assign_tiles(coarse=)`` on the card: bit for bit on live slots
+    against the dense sweep when its budget covers every superblock, and
+    the counter equal to the dropped pairs when it does not."""
+    from repro_torch.core.projection import Splats2D
+    from repro_torch.core.tiling import (NEG, TileGrid, _coarse_budget,
+                                         assign_tiles, coarse_candidates)
+
+    r = np.random.default_rng(11)
+    n, res = 20000, 256
+    grid = TileGrid(res, res, 8, 16)
+    splats = Splats2D(
+        mean2d=torch.from_numpy(r.uniform(-12, res + 12, (n, 2))
+                                .astype(np.float32)),
+        cov2d=torch.ones((n, 3)),
+        depth=torch.from_numpy(r.uniform(0.1, 10.0, n).astype(np.float32)),
+        rgb=torch.zeros((n, 3)), alpha=torch.full((n,), 0.5),
+        radius=torch.from_numpy(r.uniform(0.5, 9.0, n).astype(np.float32)),
+        valid=torch.from_numpy(r.uniform(size=n) > 0.1))
+    dev = Splats2D(*(f.to(cuda) for f in splats))
+    cand, ov = coarse_candidates(dev.mean2d, dev.radius, dev.valid, grid,
+                                 sb=4, budget=n)
+    assert int(ov) == 0
+    occ = int((cand < n).sum(1).max())
+    di, ds = assign_tiles(dev, grid, K=32)
+    ci, cs, cov = assign_tiles(dev, grid, K=32, coarse=4, coarse_budget=occ,
+                               return_overflow=True)
+    assert int(cov) == 0 and torch.equal(cs, ds)
+    live = ds > NEG / 2
+    assert torch.equal(ci[live], di[live])
+    hi, hs = assign_tiles(splats, grid, K=32, coarse=4, coarse_budget=occ)
+    assert torch.equal(hs, cs.cpu()) and torch.equal(hi, ci.cpu())
+    budget = _coarse_budget(n, (res // 16 // 4) * (res // 8 // 4), 32,
+                            occ // 2)
+    _, _, starved = assign_tiles(dev, grid, K=32, coarse=4,
+                                 coarse_budget=occ // 2,
+                                 return_overflow=True)
+    want = int((cand < n).sum(1).sub(budget).clamp(min=0).sum())
+    assert int(starved) == want > 0
+
+
 def test_cuda_checkpoint_round_trip(cuda, tmp_path):
     """A (g, opt) tree on the card saves and restores onto the card, every
     leaf equal."""

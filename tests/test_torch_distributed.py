@@ -28,6 +28,7 @@ the JAX side runs in this process on its one CPU device, on a (1, 1)
   1e-6, checkpoints that cross both ways.
 """
 
+import inspect
 import json
 import os
 import shutil
@@ -688,14 +689,18 @@ def test_unported_forward_options_raise(kw, item):
     (dict(strip_budget=0.5), "item 19"),
     (dict(grad_compress="int8"), "item 12")])
 def test_train_cfg_knobs_name_their_item(kw, item):
-    """Item 18's ``exchange``, item 19's ``strip_budget`` and item 12's
-    ``gather_mode`` and ``grad_compress`` are settings, as in the
-    reference; only item 5's ``coarse`` still raises."""
+    """Item 18's ``exchange``, item 19's ``strip_budget``, item 12's
+    ``gather_mode`` and ``grad_compress`` and item 5's ``coarse`` are
+    settings, as in the reference, also beside each other; the distributed
+    step never reads ``coarse``, as the reference's does not."""
     (name, value), = kw.items()
     assert getattr(ttr.GSTrainCfg(**kw), name) == value == \
         getattr(jtr.GSTrainCfg(**kw), name), item
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttr.GSTrainCfg(coarse=4)
+    both = dict(kw, coarse=4)
+    assert ttr.GSTrainCfg(**both).coarse == jtr.GSTrainCfg(**both).coarse \
+        == 4
+    for module in (D, JD):
+        assert "coarse" not in inspect.getsource(module), module.__name__
 
 
 def test_init_distributed_refuses_cuda_without_card():

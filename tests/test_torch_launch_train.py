@@ -121,10 +121,11 @@ def test_cli_merged_checkpoint_serves_in_both_packages(cli_runs, world):
     (["--grad-compress", "int8"], "item 12"), (["--timeseries"], "item 15")])
 def test_unported_flags_exit_naming_their_item(flag, item, capsys,
                                               tmp_path):
-    """Item 15 exits naming its item; items 18's and 12's flags are
-    accepted: a one-step ``--smoke`` run trains under them and records
-    them in its checkpoint (``extra["exchange"]``: the exchange's budget
-    state, None without ``--exchange``)."""
+    """Items 18's, 12's and 15's flags are accepted: a one-step ``--smoke``
+    run trains under them and records them in its checkpoint
+    (``extra["exchange"]``: the exchange's budget state, None without
+    ``--exchange``; ``--timeseries``: a chain of two one-step timesteps,
+    timestep 1 a delta on timestep 0)."""
     if item == "item 18":
         argv = ["--gs", "--smoke", "--device", "cpu", "--steps", "1",
                 "--ckpt-dir", str(tmp_path)] + flag
@@ -150,8 +151,18 @@ def test_unported_flags_exit_naming_their_item(flag, item, capsys,
         extra = JCkpt(str(tmp_path), keep=0).manifest_extra(1)
         assert extra[flag[0][2:].replace("-", "_")] == flag[1], extra
         return
-    assert train.main(["--gs", "--smoke", "--device", "cpu"] + flag) == 2
-    assert item in capsys.readouterr().err
+    argv = ["--gs", "--smoke", "--device", "cpu", "--steps", "1",
+            "--ckpt-dir", str(tmp_path)] + flag
+    assert train.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "timestep 0: cold start" in out and "PSNR" in out, out
+    assert "timestep 1: warm-start from timestep 0 (step 1)" in out, out
+    chain = JCkpt(str(tmp_path / "timeseries"), keep=0)
+    assert chain.all_steps() == [1, 2]
+    assert chain.manifest_extra(2)["timestep"] == 1
+    with open(tmp_path / "timeseries" / "step_000000002" /
+              "manifest.json") as f:
+        assert json.load(f)["delta"]["base_step"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -163,21 +163,20 @@ def test_cfg_and_optimizer_state():
     assert ttr.group_lrs(ttr.GSTrainCfg(), 2.5) == \
         jtr.group_lrs(jtr.GSTrainCfg(), 2.5)
     for kw, err in ((dict(dtype_policy="fp8"), ValueError),
-                    (dict(grad_compress="zip"), ValueError),
-                    (dict(coarse=4), NotImplementedError)):
+                    (dict(grad_compress="zip"), ValueError)):
         with pytest.raises(err):
             ttr.GSTrainCfg(**kw)
-    # the distributed step's wire and exchange options are settings, as in
-    # the reference
+    # the distributed step's wire and exchange options and the coarse
+    # pre-cull are settings, as in the reference
     for kw in (dict(grad_compress="int8"), dict(gather_mode="split"),
                dict(dtype_policy="bf16", grad_compress="bf16"),
-               dict(exchange=True), dict(exchange=True, exchange_budget=64)):
+               dict(exchange=True), dict(exchange=True, exchange_budget=64),
+               dict(coarse=4), dict(coarse=2, assign_impl="dense")):
         assert ttr.GSTrainCfg(**kw) == ttr.GSTrainCfg(**kw)
         for k, v in kw.items():
             assert getattr(ttr.GSTrainCfg(**kw), k) == \
                 getattr(jtr.GSTrainCfg(**kw), k) == v
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttr.GSTrainCfg(coarse=4)
+    assert ttr.GSTrainCfg(coarse=4).coarse == jtr.GSTrainCfg(coarse=4).coarse
     g = scene()[0]
     jo, to = jtr.init_opt(g), ttr.init_opt(to_port(g))
     assert set(to.m) == set(jo.m) == set(FIELDS)
