@@ -62,12 +62,12 @@ Phases (any failure propagates and the script exits nonzero):
 8. train     the training CLI as a user runs it, in-process on a world-1
    CLI       NCCL group: ``launch.train.main(["--gs", "--dataset",
              "kingsnake", "--full", "--parts", "2", "--resolution", "1024",
-             "--views", "16", "--steps", "120", "--densify-every", "10",
-             "--densify-from", "100", "--ckpt-every", "60", ...])``: the
+             "--views", "16", "--steps", "80", "--densify-every", "10",
+             "--densify-from", "60", "--ckpt-every", "40", ...])``: the
              paper's distributed trainer, both partitions (2 x 2.88M slots)
              in one ``fit_partitions`` step, 8x16 tiles, K=64, the auto tier
-             ladder, one view a step; densify after steps 110 and 120.  Cut:
-             16 views of 448 and 120 steps, as phase 5.  bwd launches == fwd
+             ladder, one view a step; densify after steps 70 and 80.  Cut:
+             16 views of 448 and 80 steps.  bwd launches == fwd
              launches > 0 inside ``fit_partitions``, each partition's share
              of the step loss falls (mean of its first 10 steps against its
              last 10), the last step's overflow counters 0,
@@ -75,8 +75,8 @@ Phases (any failure propagates and the script exits nonzero):
              plain versions (1e-5 forward, 5e-4 backward) and timed on the
              last step's own 8x16 tier tables; the step time beside
              ``fit_partition``'s one-partition step on the same scene over
-             the same 120 steps (medians over all steps and over steps
-             20-99, five cycles of the 16 views).  Then the CLI again with
+             the same 80 steps (medians over all steps and over steps
+             20-59, before the first densify).  Then the CLI again with
              ``--ckpt-quantize int8`` on a copy of its last checkpoint: no
              step to run, it merges and writes int8.
 9. mesh      the distributed step on a world-1 ("pod", "part", "model",
@@ -147,9 +147,35 @@ Phases (any failure propagates and the script exits nonzero):
              on the card on the kingsnake field at t = 0.1 at the full
              dataset's R: its count and points (in order, 1e-7) are the
              host extraction's.
+9f. LM      the LM serving path, which renders nothing (both kernels'
+   serve     counts, set to 0 before it, must stay 0):
+             ``launch.serve.main(["--arch", A, "--batch", "4",
+             "--prompt-len", "512", "--gen", "64", "--device", "cuda"])`` at
+             two published SPECs with random weights from a seed: qwen1.5-4b
+             (40 layers, d_model 2560, 20 heads padded to 32, vocab 151,936
+             padded to 153,600; ~4.6B bf16 parameters as stored) and
+             mamba2-780m (48 SSD layers, d_model 1536, chunk 256).  Gates:
+             every logit finite, every generated id < vocab; printed: prefill
+             ms, decode ms a step, tokens/s, peak memory.  In float32 at the
+             same widths and depths, prefill's logits at the last prompt
+             position against the logits after the prompt is replayed token
+             by token through a zero cache (qwen 2 x 192 tokens, two KV
+             chunks of 128, the second ragged: within 1e-3 of the largest
+             |logit|; mamba2 1 x 512, two SSD chunks: printed with each
+             layer's gap, and five of its SSD blocks held alone on the
+             prefill's own input, chunked against the recurrence, within
+             1e-3 -- see LM_SSD_LAYERS).  The ten
+             SMOKE archs in float32: prefill and 3 decode steps on the card
+             equal the same code on the CPU within 1e-4.  Not on the path, a
+             yardstick: the port's ``flash_attention`` and
+             ``F.scaled_dot_product_attention`` on the qwen prefill shape
+             (bf16, B 4, S 512, 32 heads of 128, causal), CUDA-event ms.
 10. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
-   ckpt      (16 views, max_batch 8, two passes): the repeat pass all hits,
+   ckpt      (4 views, 2 near and 2 far; max_batch 8; two passes; few
+             views because each cold pass runs the dense assignment sweep,
+             ~3.2 s a view at 8x16 tiles, three times with the in-memory
+             server's): the repeat pass all hits,
              the float32 checkpoint's images equal to a server built in
              memory on the CLI's final state merged here, the int8
              checkpoint under 0.9x the float32 one on disk and its images
@@ -164,7 +190,8 @@ wrapper and enqueue included.  ``python3 chip_smoke.py --save-inputs DIR``
 also saves the timed kernels' inputs (the serving dispatch's tile table and
 the train step's tier tables) to ``DIR`` for ``tools/torch_kernel_ab.py``.
 
-The second-to-last line is the ``{"kernels": [...]}`` record; the last line
+The second-to-last line is the ``{"kernels": [...]}`` record (each kernel's
+``lm_serve_launches``: its launches in phase 9f); the last line
 is ``{"ok": true, "device": {...}}``.  Phase 5 rehearses on the CPU at a
 small size with ``train_phase("cpu", tier="cpu", resolution=32, tile=8,
 K=16, steps=110, n_views=4)``: one densify event, after the last step (on
@@ -228,6 +255,12 @@ from repro_torch.launch import serve_gs  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.checkpoint import tree_flatten  # noqa: E402
+from repro_torch.configs import all_arch_ids, get_smoke, get_spec  # noqa: E402
+from repro_torch.launch import serve as serve_lm  # noqa: E402
+from repro_torch.models import decoder as lm_dec  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import init_params, make_prefill_step  # noqa: E402
+from repro_torch.models import zeros_caches  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 #: cores, and HBM3 bandwidth
@@ -1365,7 +1398,7 @@ def kernel_calls(calls):
             yield calls
 
 
-def serve_ckpt_phase(roots, merged, device, tmp, *, views=16, max_batch=8):
+def serve_ckpt_phase(roots, merged, device, tmp, *, views=4, max_batch=8):
     """The merged checkpoints the training CLI wrote (``roots``: float32 and
     int8 cold attributes, each a ``--ckpt-dir`` holding ``merged/``) served
     by ``serve_gs.main``; the float32 checkpoint's images against a server
@@ -1636,10 +1669,10 @@ def train_cli_phase(
     parts=2,
     resolution=1024,
     views=16,
-    steps=120,
+    steps=80,
     densify_every=10,
-    densify_from=100,
-    ckpt_every=60,
+    densify_from=60,
+    ckpt_every=40,
 ):
     """``python -m repro_torch.launch.train --gs ...`` as a user runs it (the
     defaults: the full-size kingsnake scene), in-process on a world-1
@@ -2604,6 +2637,253 @@ def coarse_phase(rec, device, *, sb=4, steps=3, reps=2, iso_tier="full"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path: published SPECs through the serve CLI, consistency
+# of prefill and decode at full width, the SMOKE archs card vs CPU
+# ---------------------------------------------------------------------------
+
+#: the card's serving request: four 512-token prompts, 64 new tokens each
+LM_SERVE = dict(batch=4, prompt_len=512, gen=64)
+#: f32 prefill logits at the last prompt position against the replay through
+#: a zero cache, relative to the largest |logit|
+LM_CONSISTENCY_TOL = 1e-3
+#: mamba2-780m's SSD blocks held alone (prefill against recurrence on the
+#: same input): every twelfth of the 48 and the last.  Its whole stack is
+#: not held at LM_CONSISTENCY_TOL: at init_params' dt * A (decays that are
+#: exp of sums reaching thousands) each layer amplifies the rounding of its
+#: input, so a gap that one block keeps within ~6e-6 of its recurrence
+#: grows to ~1.6e-3 of the largest logit over 48 layers (``layer_gaps``
+#: prints the growth; PERF.md section 6)
+LM_SSD_LAYERS = (0, 12, 24, 36, 47)
+#: the SMOKE archs on the card against the same port code on the CPU, f32,
+#: relative to the largest magnitude of the CPU's tensor
+LM_SMOKE_TOL = 1e-4
+LM_SMOKE_SHAPE = dict(batch=2, seq=64, kv_chunk=32, cache=32, steps=3)
+
+
+def lm_serve_run(arch, device, *, batch, prompt_len, gen):
+    """``launch.serve.main`` at ``arch``'s published SPEC -> its record:
+    prefill ms, decode ms a step, tokens/s, peak memory; gates: every
+    logit finite (each ``lm_logits`` call's output checked on the device,
+    read after the run), every generated id < vocab."""
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
+            "--gen", str(gen), "--device", device]
+    rec, finite = {}, []
+    real_run, real_logits = serve_lm.run, lm_dec.lm_logits
+
+    def run(args):
+        rec.update(real_run(args))
+        return rec
+
+    def logits(spec, params, x):
+        out = real_logits(spec, params, x)
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(serve_lm, "run", run), patched(lm_dec, "lm_logits", logits):
+        rc = serve_lm.main(argv)
+    wall = time.perf_counter() - t0
+    spec, gen_ids = rec["spec"], rec["gen"]
+    t_gen = rec["t_decode"] - rec["t_replay"]
+    out = {
+        "arch": spec.name,
+        "params": spec.param_count(),
+        "prefill_ms": rec["t_prefill"] * 1e3,
+        "decode_ms_per_step": rec["t_decode"] / rec["steps"] * 1e3,
+        "decode_steps": rec["steps"],
+        "gen_tokens_per_s": batch * gen / t_gen,
+        "replay_tokens_per_s": batch * prompt_len / rec["t_replay"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "logits_calls": len(finite),
+        "wall_s": wall,
+    }
+    log(f"LM serve {json.dumps(out)}")
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}")
+    if len(finite) != 1 + rec["steps"] or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{arch}: a non-finite logit ({len(finite)} calls)")
+    if gen_ids.shape != (batch, gen) or int(gen_ids.max()) >= spec.vocab:
+        raise AssertionError(f"{arch}: generated ids {gen_ids.shape}, max {gen_ids.max()}")
+    return out
+
+
+def lm_consistency(arch, device, *, batch, prompt_len, ssd_layers=()):
+    """f32 at the published width and depth: prefill's logits at the last
+    prompt position against ``decoder_decode`` + ``lm_logits`` after the
+    prompt is replayed token by token through a zero cache -> {the gap
+    relative to the largest |logit|, the same gap of each superblock's
+    output at the last position (how it grows with depth), and for each
+    superblock in ``ssd_layers`` its SSD block alone on the prefill's own
+    input: the chunked ``mamba2_block`` against ``mamba2_decode_block``
+    stepped from a zero state over the same S tokens}."""
+    spec = get_spec(arch)
+    params = init_params(spec, torch.Generator(device=device).manual_seed(0),
+                         dtype=torch.float32, device=device)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, spec.vocab, (batch, prompt_len), generator=gen,
+                           dtype=torch.int32).to(device)
+    pre, dec, inputs = [], [], {}
+    real_train, real_decode = lm_dec._apply_slot_train, lm_dec._apply_slot_decode
+
+    def slot_train(spec_, slot, x, sp, *a, **kw):
+        if len(pre) in ssd_layers:
+            inputs[len(pre)] = (x, sp)
+        out = real_train(spec_, slot, x, sp, *a, **kw)
+        pre.append(out[0][:, -1])
+        return out
+
+    def slot_decode(*a, **kw):
+        out = real_decode(*a, **kw)
+        dec.append(out[:, -1])
+        return out
+
+    t0 = time.perf_counter()
+    with patched(lm_dec, "_apply_slot_train", slot_train):
+        logits, _ = make_prefill_step(spec, kv_chunk=min(prompt_len, 128))(
+            params, {"tokens": tokens})
+    caches = zeros_caches(spec, batch, prompt_len, device=device, dtype=torch.float32)
+    with torch.inference_mode(), patched(lm_dec, "_apply_slot_decode", slot_decode):
+        for i in range(prompt_len):
+            dec.clear()
+            pos = torch.full((1,), i, device=device)
+            x = lm_dec.embed_tokens(spec, params, tokens[:, i:i + 1], pos)
+            h, caches = lm_dec.decoder_decode(spec, params, x, caches, i)
+        replay = lm_dec.lm_logits(spec, params, h)
+
+    def gap(got, want):
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    blocks = {}
+    with torch.inference_mode():
+        for layer, (x, sp) in inputs.items():
+            h = lm_layers.apply_norm(spec, x, sp["ln_ssm"])
+            want, _ = lm_layers.mamba2_block(spec, h, sp["ssm"])
+            state = {k: v[0] for k, v in zeros_caches(
+                spec, batch, 1, device=device, dtype=torch.float32)["slot0"].items()}
+            steps = []
+            for t in range(prompt_len):
+                o, state = lm_layers.mamba2_decode_block(spec, h[:, t:t + 1],
+                                                         sp["ssm"], state)
+                steps.append(o)
+            blocks[layer] = gap(torch.cat(steps, 1), want)
+    sync(device)
+    out = {"arch": spec.name, "batch": batch, "prompt_len": prompt_len,
+           "max_abs_logit": float(logits.abs().max()), "gap": gap(replay, logits),
+           "layer_gaps": [gap(d, p) for d, p in zip(dec, pre)],
+           "ssd_block_gaps": blocks, "seconds": time.perf_counter() - t0}
+    log(f"LM prefill vs decode replay, f32: {json.dumps(out)}")
+    return out
+
+
+def lm_trace(spec, params, device):
+    """Prefill and ``LM_SMOKE_SHAPE["steps"]`` decode steps from zero f32
+    caches (the prompt's first tokens fed) -> {name: tensor on the host}."""
+    sh = LM_SMOKE_SHAPE
+    batch = serve_lm.make_batch(spec, sh["batch"], sh["seq"],
+                                torch.Generator().manual_seed(1), device)
+    logits, pcaches = make_prefill_step(spec, kv_chunk=sh["kv_chunk"])(params, batch)
+    out = {"prefill_logits": logits}
+    out.update({f"prefill_{s}_{n}": t for s, c in pcaches.items() for n, t in c.items()})
+    caches = zeros_caches(spec, sh["batch"], sh["cache"], device=device,
+                          dtype=torch.float32)
+    tokens = batch["tokens"]
+    with torch.inference_mode():
+        for i in range(sh["steps"]):
+            pos = torch.full((1,), i, device=device)
+            x = lm_dec.embed_tokens(spec, params, tokens[:, i:i + 1], pos)
+            h, caches = lm_dec.decoder_decode(spec, params, x, caches, i)
+            out[f"step{i}_hidden"] = h
+            out[f"step{i}_logits"] = lm_dec.lm_logits(spec, params, h)
+            out.update({f"step{i}_{s}_{n}": t.clone()
+                        for s, c in caches.items() for n, t in c.items()})
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def lm_smoke_vs_cpu(device):
+    """Every SMOKE arch in f32 from ``init_params`` (a CPU generator, seed
+    0): ``lm_trace`` on the card against the same on the CPU -> the largest
+    relative error of each arch (gate ``LM_SMOKE_TOL``)."""
+    errs = {}
+    for arch in all_arch_ids():
+        spec = get_smoke(arch)
+        host = init_params(spec, torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device="cpu")
+        card = tree_to(host, device)
+        want, got = lm_trace(spec, host, "cpu"), lm_trace(spec, card, device)
+        errs[arch] = max(
+            float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, w in want.items())
+    log(f"LM SMOKE archs, card vs CPU (f32, max relative error): {json.dumps(errs)}")
+    bad = {a: e for a, e in errs.items() if not e <= LM_SMOKE_TOL}
+    if bad:
+        raise AssertionError(f"SMOKE archs differ between card and CPU: {bad}")
+    return errs
+
+
+def tree_to(tree, device):
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def attention_yardstick(device, *, batch=4, seq=512, heads=32, hd=128, kv_chunk=128):
+    """Not on the path: the port's ``flash_attention`` against
+    ``F.scaled_dot_product_attention`` on the qwen prefill shape (bf16,
+    causal), CUDA-event ms in turns (sdpa, flash, flash, sdpa)."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    q, k, v = (torch.randn((batch, seq, heads, hd), generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def flash():
+        return lm_layers.flash_attention(q, k, v, causal=True, kv_chunk=kv_chunk)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                 is_causal=True)
+
+    s1, f1, f2, s2 = (cuda_time_ms(fn, 10) for fn in (sdpa, flash, flash, sdpa))
+    err = float((flash().float() - sdpa().transpose(1, 2).float()).abs().max())
+    out = {"shape": [batch, seq, heads, hd], "kv_chunk": kv_chunk,
+           "flash_ms": statistics.median([f1, f2]), "flash_ms_runs": [f1, f2],
+           "sdpa_ms": statistics.median([s1, s2]), "sdpa_ms_runs": [s1, s2],
+           "max_abs_diff": err}
+    log(f"attention yardstick (bf16, causal): {json.dumps(out)}")
+    return out
+
+
+def lm_serve_phase(device):
+    """The LM serving path: qwen1.5-4b and mamba2-780m at their published
+    SPECs through ``launch.serve.main``, the f32 prefill / replay
+    consistency of both at full width, the ten SMOKE archs card vs CPU, the
+    attention yardstick -> {records, "launches": both kernels' counts over
+    the phase (set to 0 just before it)}."""
+    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = {"serve": [lm_serve_run(a, device, **LM_SERVE)
+                     for a in ("qwen1.5-4b", "mamba2-780m")]}
+    torch.cuda.empty_cache()
+    qwen = lm_consistency("qwen1.5-4b", device, batch=2, prompt_len=192)
+    mamba = lm_consistency("mamba2-780m", device, batch=1, prompt_len=512,
+                           ssd_layers=LM_SSD_LAYERS)
+    out["consistency"] = [qwen, mamba]
+    # the attention stack end to end; the SSD stack block by block (see
+    # LM_SSD_LAYERS: its full-stack gap is printed, not gated)
+    bad = [qwen["gap"]] + list(mamba["ssd_block_gaps"].values())
+    if not max(bad) <= LM_CONSISTENCY_TOL:
+        raise AssertionError(f"prefill vs decode: qwen {qwen['gap']}, SSD blocks "
+                             f"{mamba['ssd_block_gaps']}")
+    torch.cuda.empty_cache()
+    out["smoke_vs_cpu"] = lm_smoke_vs_cpu(device)
+    out["yardstick"] = attention_yardstick(device)
+    out["launches"] = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    log(f"LM serve phase {time.perf_counter() - t0:.3f} s, kernel launches "
+        f"{out['launches']} (the LM path renders nothing)")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument(
@@ -2612,6 +2892,7 @@ def main(argv=None):
         help="also save the timed kernels' inputs to DIR (serve.pt, train.pt)",
     )
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     save_dir = args.save_inputs
     if save_dir is not None:
         Path(save_dir).mkdir(parents=True, exist_ok=True)
@@ -2726,6 +3007,9 @@ def main(argv=None):
         coarse_launches = coarse_phase(part0, device)
         del part0
         torch.cuda.empty_cache()
+        # 9f. the LM serving path (renders nothing: both counts stay 0)
+        lm = lm_serve_phase(device)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2750,7 +3034,8 @@ def main(argv=None):
         f"{ex_launches['fwd']} bwd {ex_launches['bwd']}; timeseries fwd "
         f"{ts_launches['fwd']} bwd {ts_launches['bwd']}; coarse fwd "
         f"{coarse_launches['fwd']} bwd {coarse_launches['bwd']}; serve from "
-        f"checkpoint fwd {ckpt_serve_launches}"
+        f"checkpoint fwd {ckpt_serve_launches}; LM serve fwd "
+        f"{lm['launches']['fwd']} bwd {lm['launches']['bwd']}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
@@ -2770,6 +3055,7 @@ def main(argv=None):
             "bound_ms": stats["bound_ms"],
             "bound_by": stats["bound_by"],
             "library_ms": None,
+            "lm_serve_launches": lm["launches"]["fwd"],
         },
         {
             "name": "rasterize_bwd",
@@ -2785,8 +3071,10 @@ def main(argv=None):
             "bound_ms": bwd_stats["bound_ms"],
             "bound_by": bwd_stats["bound_by"],
             "library_ms": None,
+            "lm_serve_launches": lm["launches"]["bwd"],
         },
     ]
+    log(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     device_info = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

@@ -33,8 +33,10 @@ the previous one's committed state (tier and exchange schedules restored,
 no init probe) under ``--densify-cap``, commits a delta checkpoint to
 ``<ckpt>/timeseries``, and has its successor's ingest prepared on a
 worker thread (``pipeline.TimestepPrefetcher``) while it trains; a
-restart resumes at the last committed timestep.  The LM mode is not
-ported (ROADMAP queue 1 item 20).
+restart resumes at the last committed timestep.  The LM training mode
+is not ported yet (ROADMAP queue 1 item 20d, its training half): the LM
+models and their serving CLI are (``repro_torch.models``,
+``repro_torch.launch.serve``).
 """
 
 from __future__ import annotations
@@ -509,8 +511,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not args.gs:
-        print("[train] only the GS mode (--gs) is ported; the LM mode is "
-              "ROADMAP queue 1 item 20", file=sys.stderr)
+        print("[train] only the GS mode (--gs) is ported; LM training is "
+              "ROADMAP queue 1 item 20d (LM serving: python -m "
+              "repro_torch.launch.serve)", file=sys.stderr)
         return 2
     owns_group = not torch.distributed.is_initialized()
     try:

@@ -787,3 +787,61 @@ def test_cuda_part_mesh_exchange(cuda, tmp_path):
     for tag in ("exchange", "rebalanced"):
         np.testing.assert_allclose(losses[tag], losses["gather"], rtol=1e-3,
                                    err_msg=tag)
+
+
+#: one SMOKE arch per family: dense, moe, ssm, hybrid, encdec, vlm
+LM_FAMILIES = ["minicpm-2b", "mixtral-8x22b", "mamba2-780m", "jamba-v0.1-52b",
+               "whisper-tiny", "paligemma-3b"]
+
+
+def _lm_trace(spec, params, dev, B=2, S=64, steps=3):
+    """Prefill and ``steps`` decode steps from zero f32 caches (the prompt's
+    first tokens fed) -> [(name, tensor on the host)]."""
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import decoder as dec
+    from repro_torch.models import make_prefill_step, zeros_caches
+
+    batch = make_batch(spec, B, S, torch.Generator().manual_seed(1), dev)
+    logits, pcaches = make_prefill_step(spec, kv_chunk=32)(params, batch)
+    out = [("prefill_logits", logits)]
+    out += [(f"prefill_{s}_{n}", t) for s, c in pcaches.items() for n, t in c.items()]
+    caches = zeros_caches(spec, B, 32, device=dev, dtype=torch.float32)
+    with torch.inference_mode():
+        for i in range(steps):
+            x = dec.embed_tokens(spec, params, batch["tokens"][:, i:i + 1],
+                                 torch.full((1,), i, device=dev))
+            h, caches = dec.decoder_decode(spec, params, x, caches, i)
+            out += [(f"step{i}_hidden", h),
+                    (f"step{i}_logits", dec.lm_logits(spec, params, h))]
+            out += [(f"step{i}_{s}_{n}", t.clone())
+                    for s, c in caches.items() for n, t in c.items()]
+    return [(k, v.float().cpu()) for k, v in out]
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_cuda_lm_prefill_and_decode_match_cpu(cuda, arch):
+    """The LM serving path in float32 (TF32 off) from one ``init_params``
+    state: prefill and three decode steps on the card equal the same code
+    on the CPU within 1e-4 of each tensor's largest magnitude."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_params
+
+    spec = get_smoke(arch)
+    host = init_params(spec, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _lm_trace(spec, to(host), cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = _lm_trace(spec, host, "cpu")
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert err <= 1e-4, (arch, name, err)
