@@ -170,6 +170,31 @@ Phases (any failure propagates and the script exits nonzero):
              yardstick: the port's ``flash_attention`` and
              ``F.scaled_dot_product_attention`` on the qwen prefill shape
              (bf16, B 4, S 512, 32 heads of 128, causal), CUDA-event ms.
+9g. LM      the LM training path, which renders nothing either (both
+   train     kernels' counts, set to 0 before it, must stay 0):
+             ``launch.train.main(["--arch", "minicpm-2b", "--batch", "8",
+             "--seq", "512", "--kv-chunk", "128", "--steps", "4",
+             "--device", "cuda", ...])`` at minicpm-2b's published SPEC (40
+             layers, d_model 2304, 36 heads padded to 48 of 64, vocab
+             122,753 padded to 122,880, tied embeddings, WSD; 3.0B bf16
+             parameters, float32 AdamW moments) with random weights from a
+             seed, remat and the recomputing flash backward, and its final
+             ~30 GB save.  Gates: every loss and grad norm finite, step 1's
+             loss within 2 of ln(vocab), lr_scale 0 at step 1 and positive
+             after, every parameter leaf moved; printed: step ms, tokens/s,
+             peak memory, save s and bytes.  One train step of the same
+             SPEC under flash impl "vjp" and "scan": loss within 1e-4 and
+             grad norm within 2e-3 (the reference's bounds), step ms and
+             peak of each.  Not on the path, a yardstick: forward + backward
+             of vjp, scan and ``F.scaled_dot_product_attention`` at the
+             CLI's attention shape (bf16, B 8, S 512, 48 heads of 64,
+             causal), CUDA-event ms and peak memory; in f32 vjp against
+             scan within 2e-5 / 5e-4.  The ten SMOKE archs' two train steps
+             in f32 on the card equal the same code on the CPU within 1e-4
+             (metrics, m, v, parameters).  The CLI's resume on the card
+             (minicpm-2b SMOKE, 2 steps then 4 against 4): the restored
+             tree equal to the saved one bit for bit, the tail losses
+             within 1e-3.
 10. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
    ckpt      (4 views, 2 near and 2 far; max_batch 8; two passes; few
@@ -191,7 +216,8 @@ also saves the timed kernels' inputs (the serving dispatch's tile table and
 the train step's tier tables) to ``DIR`` for ``tools/torch_kernel_ab.py``.
 
 The second-to-last line is the ``{"kernels": [...]}`` record (each kernel's
-``lm_serve_launches``: its launches in phase 9f); the last line
+``lm_serve_launches`` and ``lm_train_launches``: its launches in phases 9f
+and 9g); the last line
 is ``{"ok": true, "device": {...}}``.  Phase 5 rehearses on the CPU at a
 small size with ``train_phase("cpu", tier="cpu", resolution=32, tile=8,
 K=16, steps=110, n_views=4)``: one densify event, after the last step (on
@@ -254,13 +280,17 @@ from repro_torch.core.merge import merge_partitions  # noqa: E402
 from repro_torch.launch import serve_gs  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.runtime.checkpoint import tree_flatten  # noqa: E402
+from repro_torch.runtime.checkpoint import tree_flatten, tree_map  # noqa: E402
 from repro_torch.configs import all_arch_ids, get_smoke, get_spec  # noqa: E402
 from repro_torch.launch import serve as serve_lm  # noqa: E402
 from repro_torch.models import decoder as lm_dec  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import init_params, make_prefill_step  # noqa: E402
 from repro_torch.models import zeros_caches  # noqa: E402
+from repro_torch.models import TrainCfg, init_opt_state  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.models import make_train_step  # noqa: E402
+from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 #: cores, and HBM3 bandwidth
@@ -2884,6 +2914,376 @@ def lm_serve_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM training path: a published SPEC through the training CLI, the flash
+# backward at full width, the SMOKE archs card vs CPU, resume
+# ---------------------------------------------------------------------------
+
+#: the card's training request: minicpm-2b's SPEC, B 8 x 512, 4 steps
+LM_TRAIN = dict(arch="minicpm-2b", batch=8, seq=512, kv_chunk=128, steps=4)
+#: the reference's own bounds on vjp against scan (tests/test_flash_vjp.py):
+#: a train step's loss and grad norm, and one attention's output and grads
+LM_VJP_LOSS_TOL, LM_VJP_GNORM_TOL = 1e-4, 2e-3
+ATTN_FWD_TOL, ATTN_GRAD_TOL = 2e-5, 5e-4
+#: the SMOKE archs' two train steps, card vs CPU (f32, relative to each
+#: leaf's largest magnitude), and the resumed CLI's tail losses
+LM_TRAIN_SMOKE = dict(batch=2, seq=64, kv_chunk=32, total_steps=10)
+LM_RESUME_TOL = 1e-3
+
+
+def lm_train_cli(device, tmp):
+    """``launch.train.main`` at minicpm-2b's SPEC (``LM_TRAIN``; bf16, WSD,
+    remat, the flash VJP), 4 steps and the final save into ``tmp`` ->
+    record; gates: every loss and grad norm finite, step 1's loss within 2
+    of ln(vocab), grad norm > 0, lr_scale 0 at step 1 and > 0 after, every
+    parameter leaf changed from its initial value (a sample of each leaf,
+    kept when ``init_params`` returns)."""
+    a = LM_TRAIN
+    argv = ["--arch", a["arch"], "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--kv-chunk", str(a["kv_chunk"]), "--steps", str(a["steps"]),
+            "--log-every", "1", "--ckpt-dir", str(tmp), "--device", device]
+    rec, first = {}, {}
+    real_run, real_init = train_cli.run_lm, train_cli.init_params
+
+    def run(args):
+        rec.update(real_run(args))
+        return rec
+
+    def init(*args, **kw):
+        out = real_init(*args, **kw)
+        first.update({i: p.reshape(-1)[:1 << 20].clone()
+                      for i, p in enumerate(tree_flatten(out)[0])})
+        return out
+
+    free = shutil.disk_usage(tmp).free
+    log(f"LM train CLI: {free / 2**30:.1f} GiB free under the checkpoint dir")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(train_cli, "run_lm", run), patched(train_cli, "init_params", init), \
+            timed_checkpoint_io(device) as io:
+        rc = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    spec, params = rec["spec"], tree_flatten(rec["params"])[0]
+    changed = [float((p.reshape(-1)[:1 << 20] != first[i]).float().mean())
+               for i, p in enumerate(params)]
+    steady = rec["step_s"][1:]
+    out = {
+        "arch": spec.name, "params": spec.param_count(), "leaves": len(params),
+        "largest_leaf": max(p.numel() for p in params),
+        "batch": a["batch"], "seq": a["seq"], "loss": rec["loss"],
+        "grad_norm": rec["grad_norm"], "lr_scale": rec["lr_scale"],
+        "step_ms": [t * 1e3 for t in rec["step_s"]],
+        "median_step_ms_2_4": statistics.median(steady) * 1e3,
+        "tokens_per_s": a["batch"] * a["seq"] / statistics.median(steady),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "save_s": rec["save_s"], "save_bytes": [b for op, _, b in io if op == "save"],
+        "changed_share": changed, "wall_s": wall,
+    }
+    del rec, params, first
+    log(f"LM train CLI {json.dumps(out)}")
+    ln_v = math.log(spec.vocab)
+    if rc != 0:
+        raise AssertionError(f"train exited {rc}")
+    if not all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]):
+        raise AssertionError(f"non-finite loss or grad norm: {out}")
+    if not abs(out["loss"][0] - ln_v) <= 2 or not min(out["grad_norm"]) > 0:
+        raise AssertionError(f"step 1 loss {out['loss'][0]} vs ln(V) {ln_v}")
+    if out["lr_scale"][0] != 0 or not min(out["lr_scale"][1:]) > 0:
+        raise AssertionError(f"lr_scale {out['lr_scale']}")
+    if not min(changed) > 0:
+        raise AssertionError(f"a parameter leaf did not move: {changed}")
+    return out
+
+
+def lm_train_step_once(spec, cfg, batch, device, impl):
+    """One train step of ``spec`` from ``init_params`` (seed 0, on the card)
+    under flash ``impl`` -> {loss, grad_norm, ms, peak GiB}."""
+    params = init_params(spec, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    opt = init_opt_state(spec, params, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm_layers.set_flash_impl(impl)
+    try:
+        t0 = time.perf_counter()
+        _, _, metrics = make_train_step(spec, cfg)(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        lm_layers.set_flash_impl("vjp")
+    return {"impl": impl, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "ms": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+#: kernel-name classes of a train step's device time
+LM_KERNEL_CLASSES = (
+    ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sgemm")),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce",)),
+    ("copy / cat / index", ("copy", "cat", "index", "gather", "scatter", "embedding")),
+)
+
+
+def lm_step_profile(spec, cfg, batch, device, top=15):
+    """One train step (flash vjp) of ``spec`` under ``torch.profiler`` ->
+    device ms by kernel class (``LM_KERNEL_CLASSES``) and the top kernels,
+    the device's busy share of the step's wall time."""
+    params = init_params(spec, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    opt = init_opt_state(spec, params, cfg)
+    step = make_train_step(spec, cfg)
+    rows, busy, wall_us, n = device_profile(lambda: step(params, opt, batch), 1,
+                                            torch.device(device))
+    classes = {}
+    for name, (_, us) in rows:
+        low = name.lower()
+        cls = next((c for c, keys in LM_KERNEL_CLASSES if any(k in low for k in keys)),
+                   "other")
+        classes[cls] = classes.get(cls, 0.0) + us / 1e3
+    out = {"wall_ms": wall_us / 1e3, "busy_share": busy, "device_events": n,
+           "device_ms_by_class": classes,
+           "top": [(name[:90], calls, us / 1e3) for name, (calls, us) in rows[:top]]}
+    log(f"LM train step profile (vjp): {json.dumps(out)}")
+    return out
+
+
+def lm_vjp_vs_scan(device):
+    """One train step at the CLI's SPEC and request under each flash impl
+    (vjp, then scan, each from the same initial state) -> records; gates:
+    loss within ``LM_VJP_LOSS_TOL`` and grad norm within
+    ``LM_VJP_GNORM_TOL``, relative."""
+    a = LM_TRAIN
+    spec = get_spec(a["arch"])
+    cfg = TrainCfg(total_steps=a["steps"], schedule=spec.lr_schedule,
+                   kv_chunk=a["kv_chunk"])
+    batch = SyntheticTokens(vocab=spec.vocab, seq=a["seq"], global_batch=a["batch"],
+                            seed=0).batch(0, device=device)
+    out = []
+    for impl in ("vjp", "scan"):
+        out.append(lm_train_step_once(spec, cfg, batch, device, impl))
+        torch.cuda.empty_cache()
+    log(f"LM train step, flash vjp vs scan: {json.dumps(out)}")
+    lm_step_profile(spec, cfg, batch, device)
+    v, s = out
+    loss_ok = abs(v["loss"] - s["loss"]) <= LM_VJP_LOSS_TOL * abs(s["loss"])
+    gnorm_gap = abs(v["grad_norm"] - s["grad_norm"])
+    if not (loss_ok and gnorm_gap <= LM_VJP_GNORM_TOL * s["grad_norm"]):
+        raise AssertionError(f"vjp vs scan: {out}")
+    return out
+
+
+def attention_train_yardstick(device, *, batch=8, seq=512, heads=48, hd=64,
+                              kv_chunk=128):
+    """At the CLI's attention shape (bf16, causal): forward + backward of
+    the port's vjp and scan and of ``F.scaled_dot_product_attention``,
+    CUDA-event ms in turns and each one's peak memory above its inputs;
+    then in f32 vjp against scan (``ATTN_FWD_TOL``, ``ATTN_GRAD_TOL``)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = (batch, seq, heads, hd)
+    base = [torch.randn(shape, generator=gen, device=device) for _ in range(4)]
+
+    def fns(dtype):
+        q, k, v, g = (t.to(dtype).requires_grad_(i < 3) for i, t in enumerate(base))
+
+        def flash(impl):
+            def fn():
+                out = lm_layers.flash_attention(q, k, v, causal=True,
+                                                kv_chunk=kv_chunk, impl=impl)
+                return (out,) + torch.autograd.grad(out, (q, k, v), g)
+            return fn
+
+        def sdpa():
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True).transpose(1, 2)
+            return (out,) + torch.autograd.grad(out, (q, k, v), g)
+        return {"vjp": flash("vjp"), "scan": flash("scan"), "sdpa": sdpa}
+
+    bf = fns(torch.bfloat16)
+    order = ("sdpa", "vjp", "scan", "scan", "vjp", "sdpa")
+    times = {name: [] for name in bf}
+    for name in order:
+        times[name].append(cuda_time_ms(bf[name], 5))
+    peak = {}
+    for name, fn in bf.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - before) / 2**30
+    f32 = fns(torch.float32)
+    (ov, *dv), (os_, *ds) = (
+        [t.detach() for t in f32[impl]()] for impl in ("vjp", "scan"))
+
+    def gap(a, b, tol):  # the largest |a - b| - tol * |b|, <= 0 when held
+        return float(((a - b).abs() - tol * b.abs()).max())
+
+    errs = {"out": gap(ov, os_, ATTN_FWD_TOL)}
+    errs.update({f"d{n}": gap(a, b, ATTN_GRAD_TOL) for n, a, b in zip("qkv", dv, ds)})
+    out = {"shape": list(shape), "kv_chunk": kv_chunk,
+           "ms": {k: statistics.median(v) for k, v in times.items()},
+           "ms_runs": times, "peak_gib": peak,
+           "f32_vjp_vs_scan_max_abs": {
+               "out": float((ov - os_).abs().max()),
+               **{f"d{n}": float((a - b).abs().max())
+                  for n, a, b in zip("qkv", dv, ds)}}}
+    log(f"attention fwd+bwd yardstick (bf16, causal): {json.dumps(out)}")
+    bad = {k: e for k, e in errs.items() if not e <= (ATTN_FWD_TOL if k == "out"
+                                                        else ATTN_GRAD_TOL)}
+    if bad:
+        raise AssertionError(f"f32 vjp vs scan beyond the reference's bounds: {bad}")
+    return out
+
+
+def lm_train_batch(spec, seed, device):
+    """Seeded tokens and labels (+ frames / patches), B 2 x S 64."""
+    sh = LM_TRAIN_SMOKE
+    gen = torch.Generator().manual_seed(seed)
+    batch = serve_lm.make_batch(spec, sh["batch"], sh["seq"], gen, "cpu")
+    batch = {k: (v.float() if v.is_floating_point() else v) for k, v in batch.items()}
+    batch["labels"] = torch.randint(0, spec.vocab, batch["tokens"].shape,
+                                    generator=gen, dtype=torch.int32)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def lm_train_trace(spec, params, device):
+    """Two train steps in f32 from ``params`` (updated in place) ->
+    {name: host tensor}: each step's metrics, then m, v and the
+    parameters."""
+    sh = LM_TRAIN_SMOKE
+    cfg = TrainCfg(total_steps=sh["total_steps"], kv_chunk=sh["kv_chunk"])
+    step, opt, out = make_train_step(spec, cfg), init_opt_state(spec, params, cfg), {}
+    for i in range(2):
+        params, opt, metrics = step(params, opt, lm_train_batch(spec, 10 + i, device))
+        out.update({f"step{i}_{k}": v for k, v in metrics.items()})
+    for name, tree in (("m", opt["adam"]["m"]), ("v", opt["adam"]["v"]),
+                       ("param", params)):
+        out.update({f"{name}{j}": t for j, t in enumerate(tree_flatten(tree)[0])})
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def lm_train_smoke_vs_cpu(device):
+    """Every SMOKE arch in f32 from ``init_params`` (a CPU generator, seed
+    0): ``lm_train_trace`` on the card against the same on the CPU -> per
+    arch the largest relative error of the metrics, m and v, and of the
+    parameters beyond ``lr_slack``.  Gate ``LM_SMOKE_TOL``; a parameter
+    may also differ by 2 * lr * lr_scale(step 1): Adam moves an element by
+    about +-lr * lr_scale whatever its gradient's size, and a gradient
+    that is rounding noise on both devices (qwen's key bias: softmax does
+    not see it) may take either sign (``tests/_torch_lm.py`` bounds the
+    reference comparison the same way)."""
+    errs = {}
+    for arch in all_arch_ids():
+        spec = get_smoke(arch)
+        host = init_params(spec, torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device="cpu")
+        card = tree_map(lambda t: t.clone().to(device), host)  # both updated in place
+        want = lm_train_trace(spec, host, "cpu")
+        got = lm_train_trace(spec, card, device)
+        slack = 2 * AdamWConfig().lr * float(want["step1_lr_scale"])
+        rel = {"state": 0.0, "params": 0.0}
+        for k, w in want.items():
+            kind = "params" if k.startswith("param") else "state"
+            err = float((got[k] - w).abs().max()) - (slack if kind == "params" else 0)
+            rel[kind] = max(rel[kind], err / max(float(w.abs().max()), 1e-30))
+        errs[arch] = rel
+    log(f"LM SMOKE archs, two train steps, card vs CPU (f32, max relative "
+        f"error; the parameters' beyond the Adam slack): {json.dumps(errs)}")
+    bad = {a: e for a, e in errs.items() if not max(e.values()) <= LM_SMOKE_TOL}
+    if bad:
+        raise AssertionError(f"SMOKE train steps differ between card and CPU: {bad}")
+    return errs
+
+
+def lm_resume(device, tmp):
+    """The CLI at minicpm-2b's SMOKE (B 2 x 16): 4 steps in one run, and 2
+    steps then a second call to 4 -> record; gates: the tree the second
+    call restores equals the one the first saved bit for bit (bf16 leaves
+    included), and its steps 3-4 losses are within ``LM_RESUME_TOL`` of the
+    uninterrupted run's (CUDA's embedding backward accumulates
+    atomically)."""
+    base = ["--arch", "minicpm-2b", "--smoke", "--batch", "2", "--seq", "16",
+            "--log-every", "1", "--device", device]
+    recs, saved, restored = [], {}, []
+    real_run = train_cli.run_lm
+    save, restore_latest = CheckpointManager.save, CheckpointManager.restore_latest
+
+    def run(args):
+        recs.append(real_run(args))
+        return recs[-1]
+
+    def keep_save(self, step, tree, **kw):
+        saved[(self.root, step)] = [t.cpu().clone() for t in tree_flatten(tree)[0]]
+        return save(self, step, tree, **kw)
+
+    def keep_restore(self, like, **kw):
+        out = restore_latest(self, like, **kw)
+        restored.append([t.cpu().clone() for t in tree_flatten(out[0])[0]])
+        return out
+
+    with patched(train_cli, "run_lm", run), \
+            patched(CheckpointManager, "save", keep_save), \
+            patched(CheckpointManager, "restore_latest", keep_restore):
+        for root, steps in ((tmp / "whole", 4), (tmp / "split", 2), (tmp / "split", 4)):
+            if train_cli.main(base + ["--steps", str(steps), "--ckpt-dir", str(root)]):
+                raise AssertionError("train exited nonzero")
+    whole, first, second = recs
+    want = saved[(str(tmp / "split"), 2)]
+    got = restored[2]
+    same = len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    tail = [abs(a - b) / abs(b) for a, b in zip(second["loss"], whole["loss"][2:])]
+    out = {"start": second["start"], "restored_equal": same,
+           "bf16_leaves": sum(t.dtype == torch.bfloat16 for t in got),
+           "loss_whole": whole["loss"], "loss_resumed": first["loss"] + second["loss"],
+           "tail_rel": tail}
+    log(f"LM resume on the card: {json.dumps(out)}")
+    if second["start"] != 2 or not same or not max(tail) <= LM_RESUME_TOL:
+        raise AssertionError(f"LM resume: {out}")
+    return out
+
+
+def lm_train_phase(device, tmp):
+    """The LM training path: minicpm-2b's SPEC through the training CLI,
+    vjp against scan at full width, the attention yardstick, the ten SMOKE
+    archs' train steps card vs CPU, the CLI's resume -> {records,
+    "launches": both kernels' counts over the phase (set to 0 just before
+    it)}."""
+    torch.cuda.empty_cache()
+    log(f"LM train phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        "allocated at its start")
+    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    ckpt = tmp / "lm_train"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    try:
+        out = {"cli": lm_train_cli(device, ckpt)}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"LM train phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated after the CLI")
+    out["vjp_vs_scan"] = lm_vjp_vs_scan(device)
+    out["yardstick"] = attention_train_yardstick(device)
+    torch.cuda.empty_cache()
+    out["smoke_vs_cpu"] = lm_train_smoke_vs_cpu(device)
+    resume = tmp / "lm_resume"
+    try:
+        out["resume"] = lm_resume(device, resume)
+    finally:
+        shutil.rmtree(resume, ignore_errors=True)
+    out["launches"] = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"LM train phase {out['seconds']:.3f} s, kernel launches "
+        f"{out['launches']} (the LM path renders nothing)")
+    if out["launches"] != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"a compositor kernel launched on the LM path: "
+                             f"{out['launches']}")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument(
@@ -3009,6 +3409,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         # 9f. the LM serving path (renders nothing: both counts stay 0)
         lm = lm_serve_phase(device)
+        # 9g. the LM training path (renders nothing: both counts stay 0)
+        lm_train = lm_train_phase(device, tmp)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
@@ -3035,7 +3437,8 @@ def main(argv=None):
         f"{ts_launches['fwd']} bwd {ts_launches['bwd']}; coarse fwd "
         f"{coarse_launches['fwd']} bwd {coarse_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}; LM serve fwd "
-        f"{lm['launches']['fwd']} bwd {lm['launches']['bwd']}"
+        f"{lm['launches']['fwd']} bwd {lm['launches']['bwd']}; LM train fwd "
+        f"{lm_train['launches']['fwd']} bwd {lm_train['launches']['bwd']}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
@@ -3056,6 +3459,7 @@ def main(argv=None):
             "bound_by": stats["bound_by"],
             "library_ms": None,
             "lm_serve_launches": lm["launches"]["fwd"],
+            "lm_train_launches": lm_train["launches"]["fwd"],
         },
         {
             "name": "rasterize_bwd",
@@ -3072,6 +3476,7 @@ def main(argv=None):
             "bound_by": bwd_stats["bound_by"],
             "library_ms": None,
             "lm_serve_launches": lm["launches"]["bwd"],
+            "lm_train_launches": lm_train["launches"]["bwd"],
         },
     ]
     log(f"whole run {time.perf_counter() - t_start:.1f} s")

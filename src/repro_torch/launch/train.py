@@ -1,13 +1,27 @@
-"""Training driver (CLI), port of ``repro.launch.train``: the GS mode.
+"""Training driver (CLI), port of ``repro.launch.train``.
 
-    # one process (a world of one): the card, or --device cpu
+Two modes, one runtime:
+
+    # LM: one process on one device
+    python -m repro_torch.launch.train --arch minicpm-2b --smoke --steps 20
+    # GS, one process (a world of one): the card, or --device cpu
     python -m repro_torch.launch.train --gs --dataset kingsnake --parts 2 \
         --steps 200 --resolution 64
-    # N processes, one card each (NCCL), or N CPU ranks (gloo)
+    # GS, N processes, one card each (NCCL), or N CPU ranks (gloo)
     torchrun --nproc-per-node N -m repro_torch.launch.train --gs ... \
         --device cuda
 
-The paper's end-to-end workflow on the distributed tier-schedule driver
+The LM mode (``run_lm``) trains a registered architecture (``--arch``; its
+SMOKE config with ``--smoke``) on ``data.tokens.SyntheticTokens``: bf16
+parameters from ``init_params`` on a generator on ``--device`` seeded with
+``--seed``, ``models.make_train_step`` (remat, the recomputing flash
+backward, ``--microbatches``, ``--compression``, AdamW under the arch's LR
+schedule), checkpoints every ``--ckpt-every`` steps and at the end (the
+parameters and the optimizer state; bf16 leaves in the reference's on-disk
+form), resuming from the newest one, with a heartbeat and step retry.  It
+runs one process with no process group, as the reference's does.
+
+The GS mode is the paper's end-to-end workflow on the distributed tier-schedule driver
 (``core/distributed.fit_partitions``): partition (+ ghost cells) ->
 per-partition GT renders + coverage masks -> tiered distributed training of
 every partition in one step on the ("part", "view") rank mesh (probe ->
@@ -33,10 +47,7 @@ the previous one's committed state (tier and exchange schedules restored,
 no init probe) under ``--densify-cap``, commits a delta checkpoint to
 ``<ckpt>/timeseries``, and has its successor's ingest prepared on a
 worker thread (``pipeline.TimestepPrefetcher``) while it trains; a
-restart resumes at the last committed timestep.  The LM training mode
-is not ported yet (ROADMAP queue 1 item 20d, its training half): the LM
-models and their serving CLI are (``repro_torch.models``,
-``repro_torch.launch.serve``).
+restart resumes at the last committed timestep.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ import types
 import numpy as np
 import torch
 
+from repro_torch import check_device
+from repro_torch.configs import get_smoke, get_spec
 from repro_torch.configs.gs_datasets import get_gs_dataset
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core import merge as merge_mod
@@ -63,9 +76,65 @@ from repro_torch.core.pipeline import (TimestepPrefetcher, build_scene,
 from repro_torch.core.tiling import TileGrid
 from repro_torch.core.train import (GSTrainCfg, _check_resume_policy,
                                     init_opt)
+from repro_torch.data.tokens import SyntheticTokens
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import (TrainCfg, init_opt_state, init_params,
+                                make_train_step)
 from repro_torch.runtime.checkpoint import (CheckpointManager, quantize_cold,
                                             tree_map)
+from repro_torch.runtime.ft import Heartbeat, retry_step
+
+
+def run_lm(args) -> dict:
+    """The LM mode -> a record: the spec, the final parameters and optimizer
+    state, each step's loss, grad norm, lr scale and seconds (the device
+    synchronised at each step's end), the steps run, and the final save's
+    seconds."""
+    dev = check_device(args.device)
+    spec = get_smoke(args.arch) if args.smoke else get_spec(args.arch)
+    cfg = TrainCfg(total_steps=args.steps, compression=args.compression,
+                   schedule=spec.lr_schedule, kv_chunk=args.kv_chunk,
+                   n_microbatches=args.microbatches)
+    print(f"[train] arch={spec.name} params={spec.param_count():,} "
+          f"policy={spec.sharding_policy}")
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(args.seed),
+                         device=dev)
+    opt = init_opt_state(spec, params, cfg)
+    step_fn = make_train_step(spec, cfg)
+
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    hb = Heartbeat(args.ckpt_dir, "worker0")
+    (params, opt), _, latest = ckpt.restore_latest((params, opt), device=dev)
+    start = latest or 0
+    if latest is not None:
+        print(f"[train] resumed from step {start}")
+
+    data = SyntheticTokens(vocab=spec.vocab, seq=args.seq,
+                           global_batch=args.batch, seed=args.seed)
+    rec = {"spec": spec, "start": start, "loss": [], "grad_norm": [],
+           "lr_scale": [], "step_s": []}
+    t0 = time.perf_counter()
+    for step in range(start, args.steps):
+        t_step = time.perf_counter()
+        batch = data.batch(step, device=dev)
+        params, opt, metrics = retry_step(step_fn, params, opt, batch)
+        for k in ("loss", "grad_norm", "lr_scale"):
+            rec[k].append(float(metrics[k]))       # waits for the step
+        rec["step_s"].append(time.perf_counter() - t_step)
+        hb.beat(step)
+        if (step + 1) % args.log_every == 0:
+            dt = (time.perf_counter() - t0) / args.log_every
+            t0 = time.perf_counter()
+            print(f"  step {step+1:5d} loss {rec['loss'][-1]:.4f} "
+                  f"gnorm {rec['grad_norm'][-1]:.3f} {dt*1e3:.0f}ms/step")
+        if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(step + 1, (params, opt), extra={"arch": spec.name})
+    t_save = time.perf_counter()
+    ckpt.save(args.steps, (params, opt), extra={"arch": spec.name})
+    rec["save_s"] = time.perf_counter() - t_save
+    print("[train] done")
+    rec.update(params=params, opt=opt, steps=args.steps)
+    return rec
 
 
 def _smoke(args):
@@ -438,9 +507,19 @@ def build_parser() -> argparse.ArgumentParser:
     """The CLI's flags (the reference's, with ``--device``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--gs", action="store_true")
+    # LM
+    ap.add_argument("--arch", default="minicpm-2b")
     ap.add_argument("--smoke", action="store_true",
-                    help="tiny full-lifecycle run (2 parts, small scene, "
-                         "densify + checkpoint on)")
+                    help="LM: reduced same-family config; GS: tiny "
+                         "full-lifecycle run (2 parts, small scene, densify "
+                         "+ checkpoint on)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--kv-chunk", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8"])
+    # GS
     ap.add_argument("--dataset", default="sphere_shell")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--parts", type=int, default=2)
@@ -472,7 +551,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (NCCL, one card per rank) or cpu (gloo)")
+                    help="cuda or cpu (GS: NCCL, one card per rank, or "
+                         "gloo)")
     ap.add_argument("--dtype-policy", default="f32", choices=["f32", "bf16"],
                     help="storage / wire dtype of the all-gathered splat "
                          "tables (bf16 halves them); compositing, loss and "
@@ -511,10 +591,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not args.gs:
-        print("[train] only the GS mode (--gs) is ported; LM training is "
-              "ROADMAP queue 1 item 20d (LM serving: python -m "
-              "repro_torch.launch.serve)", file=sys.stderr)
-        return 2
+        run_lm(args)
+        return 0
     owns_group = not torch.distributed.is_initialized()
     try:
         return run_gs_timeseries(args) if args.timeseries else run_gs(args)

@@ -1,5 +1,5 @@
 """The LM models of the port: specs, parameters, layers, the decoder and the
-serve steps (the serving half of ``repro.models``)."""
+train / serve steps (``repro.models``)."""
 
 from repro_torch.models.spec import ModelSpec, MoECfg, SSMCfg
 from repro_torch.models.params import (
@@ -9,9 +9,15 @@ from repro_torch.models.params import (
     params_from_numpy,
 )
 from repro_torch.models.steps import (
+    SHAPES,
+    TrainCfg,
     cache_len,
     cache_specs,
+    init_opt_state,
+    input_specs,
     make_decode_step,
     make_prefill_step,
+    make_train_step,
+    opt_state_specs,
     zeros_caches,
 )

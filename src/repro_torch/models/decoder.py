@@ -1,11 +1,15 @@
-"""Model forward passes: prefill forward, single-token decode, enc-dec.
+"""Model forward passes: train/prefill forward, single-token decode, enc-dec.
 
 The layer stack is a loop over *superblocks* (see spec.py): each superblock
 applies ``period`` slots whose types (attention / mamba / MLP / MoE) are
 static Python; superblock ``i``'s weights are ``params["sb"][slot][name][i]``
-(the reference scans over the same stacked leaves).  Prefill caches come
-back stacked over superblocks, ``(nsb, …)``, as the reference returns them.
-``remat=`` is accepted and does nothing: the forward keeps no graph.
+(the reference scans over the same stacked leaves), views from one
+``unbind`` a leaf, so their gradients flow back into one stacked gradient
+a leaf.  Prefill caches come back stacked over superblocks, ``(nsb, …)``,
+as the reference returns them.  ``remat=True`` wraps each superblock (and
+each encoder layer) in ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``): when autograd records, the backward recomputes the
+block's activations instead of keeping them.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.spec import ModelSpec
@@ -27,6 +32,14 @@ def _unstack(tree, n: int):
         for tree_i, part in zip(out, parts):
             tree_i[k] = part
     return out
+
+
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    autograd is recording (the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -132,18 +145,25 @@ def decoder_forward(
     Returns (hidden (B,S,D), aux_loss, caches) — caches stacked per slot over
     superblocks when want_cache.
     """
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_sb = []
-    for sb_params in _unstack(params["sb"], spec.n_superblocks):
+
+    def superblock(x, sb_params):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = {}
         for s in range(spec.period):
             x, a, cache = _apply_slot_train(
                 spec, s, x, sb_params[f"slot{s}"], positions, prefix_len,
                 kv_chunk, want_cache, enc_h,
             )
-            aux = aux + a
+            aux_total = aux_total + a
             if cache is not None:
                 caches[f"slot{s}"] = cache
+        return x, aux_total, caches
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_sb = []
+    for sb_params in _unstack(params["sb"], spec.n_superblocks):
+        x, a, caches = _remat(superblock, remat, x, sb_params)
+        aux = aux + a
         per_sb.append(caches)
     stacked = {
         slot: {name: torch.stack([c[slot][name] for c in per_sb])
@@ -211,9 +231,9 @@ def encoder_forward(spec: ModelSpec, params, frames, *, remat: bool = True):
     # fixed sinusoidal positions
     x = x + sinusoidal_pe(torch.arange(S, device=x.device), spec.d_model,
                           x.dtype)[None]
-    enc = params["encoder"]
     Hq, Hkv, hd = spec.padded_n_q, spec.padded_n_kv, spec.hd
-    for lp in _unstack(enc, spec.enc_layers):
+
+    def block(x, lp):
         h = L.apply_norm(spec, x, lp["ln_attn"])
         B, S_, _ = h.shape
         q = (h @ lp["attn"]["wq"]).reshape(B, S_, Hq, hd)
@@ -222,5 +242,8 @@ def encoder_forward(spec: ModelSpec, params, frames, *, remat: bool = True):
         o = L.flash_attention(q, k, v, causal=False)
         x = x + o.reshape(B, S_, Hq * hd) @ lp["attn"]["wo"]
         h = L.apply_norm(spec, x, lp["ln_mlp"])
-        x = x + L.mlp_block(spec, h, lp["mlp"])
+        return x + L.mlp_block(spec, h, lp["mlp"])
+
+    for lp in _unstack(params["encoder"], spec.enc_layers):
+        x = _remat(block, remat, x, lp)
     return L.apply_norm(spec, x, params["enc_final_norm"])

@@ -16,11 +16,15 @@ The port of ``repro.models.layers`` (the reference), in plain PyTorch:
 * Mamba2 uses the chunked SSD (state-space duality) algorithm: intra-chunk
   quadratic term + inter-chunk recurrence (a loop over chunks).
 
-Forward only: the recomputing flash backward (the reference's custom VJP)
-comes with LM training.  The reference's ``constrain_batch`` (a sharding
-constraint, a no-op on one device) is not ported.  The decode blocks write
-the new token's K/V row into the cache in place; the SSM decode returns its
-new state, as the reference does.
+Training differentiates these forwards with autograd, except attention's
+default path: ``flash_attention(impl="vjp")`` is a ``torch.autograd.Function``
+whose backward is the reference's recomputing flash backward (it saves
+(q, k, v, out, m, l) and recomputes each chunk's probabilities, never an
+O(Sq * Skv) stash).  The reference's ``constrain_batch`` (a sharding
+constraint, a no-op on one device) is not ported.  Nothing on the training
+forward writes in place; the decode blocks write the new token's K/V row
+into the cache in place, and the SSM decode returns its new state, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -97,11 +101,10 @@ def apply_rope(x, cos, sin):
 NEG_INF = -1e30
 
 #: "vjp"  — the reference's custom-VJP flash attention (a recomputing
-#:          backward; no O(S*S) stash).
-#: "scan" — the reference's plain-scan baseline (autodiff saves every chunk's
-#:          probabilities).
-#: Both share one forward; they differ only in the backward, which comes
-#: with LM training.
+#:          backward; no O(S*S) stash): ``_FlashVJP``.
+#: "scan" — the reference's plain-scan baseline (autograd through the chunk
+#:          loop saves every chunk's probabilities).
+#: Both share one forward; they differ only in the backward.
 FLASH_IMPL = os.environ.get("REPRO_ATTN_IMPL", "vjp")
 
 
@@ -130,6 +133,130 @@ def _dot32(eq, a, b):
     return torch.einsum(eq, a.float(), b.float())
 
 
+def _chunk_mask(causal, prefix_len, window, q_pos, kv_offset, lo, kv_chunk,
+                Skv, dev):
+    """Chunk ``[lo, lo + kv_chunk)``'s (Sq, C) mask: the position mask and
+    the zero-padded tail past ``Skv``."""
+    kv_idx = lo + torch.arange(kv_chunk, device=dev)
+    ok = _attn_mask(causal, prefix_len, window, q_pos, kv_offset + kv_idx)
+    valid = kv_idx < Skv
+    return valid[None, :] if ok is None else ok & valid[None, :]
+
+
+def _flash_kv(k, v, G, kv_chunk):
+    """KV heads repeated to the query heads, zero-padded to whole chunks
+    (the reference pads the same way) -> (k, v, number of chunks)."""
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    Skv = k.shape[1]
+    nchunks = max(1, (Skv + kv_chunk - 1) // kv_chunk)
+    pad = nchunks * kv_chunk - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v, nchunks
+
+
+def _flash_fwd(q, k, v, causal, window, q_offset, kv_offset, kv_chunk,
+               prefix_len, kv_len_mask=None):
+    """The chunked online-softmax loop -> (out (B, Sq, Hq, hd) in v's dtype,
+    the running max m and sum l, (B, Hq, Sq) float32)."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    k, v, nchunks = _flash_kv(k, v, Hq // Hkv, kv_chunk)
+    if kv_len_mask is not None and k.shape[1] > Skv:
+        kv_len_mask = F.pad(kv_len_mask, (0, k.shape[1] - Skv), value=False)
+
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hq, Sq, hd), dtype=torch.float32, device=dev)
+    for c in range(nchunks):
+        lo = c * kv_chunk
+        kcb, vcb = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
+        s = _dot32("bqhd,bchd->bhqc", q, kcb) * scale
+        ok = _chunk_mask(causal, prefix_len, window, q_pos, kv_offset, lo,
+                         kv_chunk, Skv, dev)
+        s = s.masked_fill(~ok[None, None], NEG_INF)
+        if kv_len_mask is not None:
+            msk = kv_len_mask[:, lo:lo + kv_chunk]
+            s = s.masked_fill(~msk[:, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = _dot32("bhqc,bchd->bhqd", p.to(vcb.dtype), vcb)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).reshape(B, Sq, Hq, hd).to(v.dtype), m, l
+
+
+class _FlashVJP(torch.autograd.Function):
+    """The reference's ``_flash_vjp``: the chunked forward, saving only
+    (q, k, v, out, m, l); the backward recomputes each chunk's
+    probabilities from the log-sum-exp (``_flash_vjp_bwd``)::
+
+        delta = rowsum(g * out)
+        p     = exp(s - lse)          (0 where masked)
+        ds    = p * (dp - delta) * scale,  dp = g @ v^T
+        dq   += ds @ k;   dk_c = ds^T @ q;   dv_c = p^T @ g
+
+    all in float32, the padded tail sliced off, the GQA repeats summed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_offset, kv_chunk,
+                prefix_len):
+        out, m, l = _flash_fwd(q, k, v, causal, window, q_offset, kv_offset,
+                               kv_chunk, prefix_len)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.cfg = (causal, window, q_offset, kv_offset, kv_chunk, prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, window, q_offset, kv_offset, kv_chunk, prefix_len = ctx.cfg
+        B, Sq, Hq, hd = q.shape
+        _, Skv, Hkv, _ = k.shape
+        G = Hq // Hkv
+        scale = 1.0 / math.sqrt(hd)
+        dev = q.device
+        kr, vr, nchunks = _flash_kv(k, v, G, kv_chunk)
+
+        lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), 0.0)
+        gf = g.float().transpose(1, 2)                       # (B,Hq,Sq,hd)
+        of = out.float().transpose(1, 2)
+        delta = (gf * of).sum(-1)                            # (B,Hq,Sq)
+        qf = q.float()
+        q_pos = q_offset + torch.arange(Sq, device=dev)
+        dq = torch.zeros((B, Hq, Sq, hd), dtype=torch.float32, device=dev)
+        dks, dvs = [], []
+        for c in range(nchunks):
+            lo = c * kv_chunk
+            kcb, vcb = kr[:, lo:lo + kv_chunk], vr[:, lo:lo + kv_chunk]
+            s = _dot32("bqhd,bchd->bhqc", q, kcb) * scale
+            ok = _chunk_mask(causal, prefix_len, window, q_pos, kv_offset, lo,
+                             kv_chunk, Skv, dev)
+            p = torch.where(ok[None, None], torch.exp(s - lse[..., None]), 0.0)
+            dp = torch.einsum("bhqd,bchd->bhqc", gf, vcb.float())
+            ds = p * (dp - delta[..., None]) * scale         # (B,Hq,Sq,C)
+            dq = dq + torch.einsum("bhqc,bchd->bhqd", ds, kcb.float())
+            dks.append(torch.einsum("bhqc,bqhd->bchd", ds, qf))
+            dvs.append(torch.einsum("bhqc,bhqd->bchd", p, gf))
+        dq = dq.transpose(1, 2).to(q.dtype)
+        dk = torch.cat(dks, 1)[:, :Skv]
+        dv = torch.cat(dvs, 1)[:, :Skv]
+        if G > 1:  # repeat_interleave's order: head h * G + j is kv head h
+            dk = dk.reshape(B, Skv, Hkv, G, hd).sum(3)
+            dv = dv.reshape(B, Skv, Hkv, G, hd).sum(3)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
 def flash_attention(
     q, k, v,
     *,
@@ -148,54 +275,22 @@ def flash_attention(
     ``prefix_len``: positions < prefix_len attend bidirectionally (PaliGemma
     prefix-LM); only meaningful with causal=True.
     ``kv_len_mask``: optional (B, Skv) bool validity mask (ragged caches).
-    ``impl``: "vjp" or "scan" (the same forward).  Returns (B, Sq, Hq, hd)
-    in v's dtype.
+    ``impl``: "vjp" (the recomputing backward, default) or "scan" (autograd
+    through the loop; it saves every chunk's probabilities).  As in the
+    reference, "vjp" applies only without ``kv_len_mask`` and with Python
+    int offsets; otherwise autograd runs through the loop.  Returns
+    (B, Sq, Hq, hd) in v's dtype.
     """
     impl = impl or FLASH_IMPL
     if impl not in ("vjp", "scan"):
         raise ValueError(f"flash_attention impl {impl!r}")
-    B, Sq, Hq, hd = q.shape
-    _, Skv, Hkv, _ = k.shape
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(hd)
-    dev = q.device
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    nchunks = max(1, (Skv + kv_chunk - 1) // kv_chunk)
-    pad = nchunks * kv_chunk - Skv
-    if pad:  # zero rows, masked below (the reference pads the same way)
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        if kv_len_mask is not None:
-            kv_len_mask = F.pad(kv_len_mask, (0, pad), value=False)
-
-    q_pos = q_offset + torch.arange(Sq, device=dev)
-    m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hq, Sq, hd), dtype=torch.float32, device=dev)
-    for c in range(nchunks):
-        lo = c * kv_chunk
-        kcb, vcb = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
-        kv_idx = lo + torch.arange(kv_chunk, device=dev)
-        kv_pos = kv_offset + kv_idx
-        s = _dot32("bqhd,bchd->bhqc", q, kcb) * scale
-        ok = _attn_mask(causal, prefix_len, window, q_pos, kv_pos)
-        valid = kv_idx < Skv                       # padding chunk tail
-        ok = valid[None, :] if ok is None else ok & valid[None, :]
-        s = s.masked_fill(~ok[None, None], NEG_INF)
-        if kv_len_mask is not None:
-            msk = kv_len_mask[:, lo:lo + kv_chunk]
-            s = s.masked_fill(~msk[:, None, None, :], NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        pv = _dot32("bhqc,bchd->bhqd", p.to(vcb.dtype), vcb)
-        acc = acc * corr[..., None] + pv
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).reshape(B, Sq, Hq, hd).to(v.dtype)
+    if impl == "vjp" and kv_len_mask is None and isinstance(q_offset, int) \
+            and isinstance(kv_offset, int) and torch.is_grad_enabled() \
+            and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashVJP.apply(q, k, v, causal, window, q_offset, kv_offset,
+                               kv_chunk, prefix_len)
+    return _flash_fwd(q, k, v, causal, window, q_offset, kv_offset, kv_chunk,
+                      prefix_len, kv_len_mask)[0]
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, *, window: Optional[int] = None):

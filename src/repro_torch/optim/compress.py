@@ -16,14 +16,17 @@ holds the whole (P, N, ...) gradient, so its ``max |g + e|`` spans every
 shard.  Here each rank holds a (Pl, Nl, ...) block, so ``group=`` names
 the ranks holding the other blocks and the max is all-reduced over them
 (None: this rank holds the whole tensor).
+
+``grads`` is any tree of tensors (the GS trainer's flat dict, the LM's
+nested parameter dicts); the error state has the same structure.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime.checkpoint import tree_flatten, tree_map
 
 #: the modes and their wire ratios (bytes of f32 over bytes on the wire)
 RATIOS = {"none": 1.0, "bf16": 2.0, "int8": 4.0}
@@ -48,9 +51,8 @@ def _quantize_int8(g: torch.Tensor, e: torch.Tensor, group=None):
     return deq, g - deq
 
 
-def compress_grads(grads: dict, mode: str, err_state: Optional[dict] = None,
-                   *, group=None):
-    """``grads`` (a dict of tensors) -> (decompressed grads, new error
+def compress_grads(grads, mode: str, err_state=None, *, group=None):
+    """``grads`` (a tree of tensors) -> (decompressed grads, new error
     state, wire ratio).  "none" returns ``grads`` itself; "bf16" carries no
     state (the error state passes through); "int8" starts from a zero
     residual when ``err_state`` is None.  ``group``: the process group
@@ -59,16 +61,19 @@ def compress_grads(grads: dict, mode: str, err_state: Optional[dict] = None,
     if mode == "none":
         return grads, err_state, RATIOS[mode]
     if mode == "bf16":
-        out = {k: g.to(torch.bfloat16).to(torch.float32)
-               for k, g in grads.items()}
+        out = tree_map(lambda g: g.to(torch.bfloat16).to(torch.float32), grads)
         return out, err_state, RATIOS[mode]
     if mode == "int8":
+        flat_g, treedef = tree_flatten(grads)
         if err_state is None:
-            err_state = {k: torch.zeros(g.shape, dtype=torch.float32,
-                                        device=g.device)
-                         for k, g in grads.items()}
-        out, err = {}, {}
-        for k, g in grads.items():
-            out[k], err[k] = _quantize_int8(g, err_state[k], group)
-        return out, err, RATIOS[mode]
+            flat_e = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                      for g in flat_g]
+        else:
+            flat_e, tdef_e = tree_flatten(err_state)
+            if str(tdef_e) != str(treedef):
+                raise ValueError("compress_grads: the error state's structure "
+                                 "differs from the gradients'")
+        pairs = [_quantize_int8(g, e, group) for g, e in zip(flat_g, flat_e)]
+        return (treedef.unflatten([d for d, _ in pairs]),
+                treedef.unflatten([r for _, r in pairs]), RATIOS[mode])
     raise ValueError(mode)

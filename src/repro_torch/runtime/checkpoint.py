@@ -24,7 +24,12 @@ in order, a dict's keys SORTED, ``None`` holds no leaf) and the manifest's
 ``treedef`` is the reference's string for the same tree, which
 ``save_delta`` compares against its base's.  ``restore`` rebuilds the
 template's containers with tensors on ``device=`` (the reference's
-``shardings=`` has no meaning on one card).
+``shardings=`` has no meaning on one card).  A bfloat16 leaf (the LM
+trainer's parameters) is written as the reference's ``np.save`` writes an
+``ml_dtypes`` bfloat16 array -- descr ``'<V2'``, the raw bits, manifest
+dtype "bfloat16" -- and restored as ``torch.bfloat16`` bit for bit, from
+either package's files (the reference itself cannot restore such a leaf:
+jax rejects the ``V2`` array numpy loads).
 """
 
 from __future__ import annotations
@@ -100,26 +105,29 @@ class _TreeDef:
         return self.meta(*kids)
 
 
+def _walk(x, leaves: List[Any]) -> _TreeDef:
+    """``x``'s treedef, its leaves appended to ``leaves``.  (A module-level
+    function: a nested recursive closure over ``leaves`` would make a
+    reference cycle that keeps every leaf alive until the next garbage
+    collection -- gigabytes of gradients on the card.)"""
+    if x is None:
+        return _TreeDef("none")
+    if _is_namedtuple(x):
+        return _TreeDef("namedtuple", type(x), [_walk(c, leaves) for c in x])
+    if isinstance(x, tuple):
+        return _TreeDef("tuple", None, [_walk(c, leaves) for c in x])
+    if isinstance(x, list):
+        return _TreeDef("list", None, [_walk(c, leaves) for c in x])
+    if isinstance(x, dict):
+        return _TreeDef("dict", list(x), [_walk(x[k], leaves) for k in sorted(x)])
+    leaves.append(x)
+    return _TreeDef("leaf")
+
+
 def tree_flatten(tree) -> Tuple[List[Any], _TreeDef]:
     """-> (leaves, treedef), leaves in ``jax.tree.flatten``'s order."""
     leaves: List[Any] = []
-
-    def walk(x) -> _TreeDef:
-        if x is None:
-            return _TreeDef("none")
-        if _is_namedtuple(x):
-            return _TreeDef("namedtuple", type(x), [walk(c) for c in x])
-        if isinstance(x, tuple):
-            return _TreeDef("tuple", None, [walk(c) for c in x])
-        if isinstance(x, list):
-            return _TreeDef("list", None, [walk(c) for c in x])
-        if isinstance(x, dict):
-            return _TreeDef("dict", list(x),
-                            [walk(x[k]) for k in sorted(x)])
-        leaves.append(x)
-        return _TreeDef("leaf")
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
 
 
@@ -128,12 +136,24 @@ def tree_map(fn, tree):
     return treedef.unflatten([fn(x) for x in leaves])
 
 
+#: a bfloat16 leaf on the host: its raw bits as 2-byte voids.  On disk it is
+#: what the reference's ``np.save`` writes for an ``ml_dtypes`` bfloat16
+#: array: the ``.npy`` descr ``'<V2'``, the little-endian bits, and
+#: "bfloat16" as the manifest's dtype (``ml_dtypes`` is not needed).
+_BF16_HOST = np.dtype("V2")
+_BF16_DESCR = "<V2"
+
+
 def _leaf_to_numpy(leaf, i: int) -> np.ndarray:
-    """A leaf as the host array the reference would save.  A tensor whose
-    dtype numpy cannot hold (bf16, fp8) raises: it is never cast quietly."""
+    """A leaf as the host array the reference would save (a bfloat16 tensor
+    as ``_BF16_HOST``).  A tensor whose dtype has no such form (fp8) raises:
+    it is never cast quietly."""
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy().view(_BF16_HOST)
         try:
-            return leaf.detach().cpu().numpy()
+            return leaf.cpu().numpy()
         except TypeError as e:
             raise TypeError(
                 f"checkpoint leaf {i}: dtype {leaf.dtype} has no numpy "
@@ -141,9 +161,44 @@ def _leaf_to_numpy(leaf, i: int) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _to_device(tree, device):
+def _dtype_name(arr: np.ndarray) -> str:
+    """The manifest's dtype string for a host leaf (the reference's)."""
+    return "bfloat16" if arr.dtype == _BF16_HOST else str(arr.dtype)
+
+
+def _save_leaf(path: str, arr: np.ndarray):
+    """``np.save``, except that a bfloat16 leaf gets the reference's header
+    (descr ``'<V2'``; numpy alone would write ``'|V2'``)."""
+    if arr.dtype != _BF16_HOST:
+        np.save(path, arr)
+        return
+    arr = np.asarray(arr, order="C")
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False,
+                "shape": arr.shape})
+        arr.tofile(f)
+
+
+def _to_tensor(arr: np.ndarray, dtype: str, i: int) -> torch.Tensor:
+    """A loaded leaf -> a CPU tensor.  A 2-byte void leaf the manifest calls
+    "bfloat16" (the reference's bf16, or the port's) comes back as
+    ``torch.bfloat16``, bit for bit; any other dtype numpy reads only as
+    voids (fp8) raises."""
+    if arr.dtype.kind == "V":
+        if dtype == "bfloat16" and arr.dtype.itemsize == 2:
+            bits = np.asarray(arr, order="C").view(np.int16)
+            return torch.from_numpy(bits).view(torch.bfloat16)
+        raise TypeError(f"checkpoint leaf {i}: dtype {dtype!r} has no torch "
+                        "counterpart here")
+    return torch.from_numpy(arr)
+
+
+def _to_device(treedef, arrs, manifest, device):
     dev = check_device(device)
-    return tree_map(lambda a: torch.from_numpy(a).to(dev), tree)
+    return treedef.unflatten([
+        _to_tensor(a, meta["dtype"], i).to(dev)
+        for i, (a, meta) in enumerate(zip(arrs, manifest["leaves"]))])
 
 
 # ---------------------------------------------------------------------------
@@ -233,9 +288,9 @@ class CheckpointManager:
         }
         for i, leaf in enumerate(leaves):
             arr = _leaf_to_numpy(leaf, i)
-            np.save(os.path.join(tmp, f"arr_{i:06d}.npy"), arr)
+            _save_leaf(os.path.join(tmp, f"arr_{i:06d}.npy"), arr)
             manifest["leaves"].append(
-                {"shape": list(arr.shape), "dtype": str(arr.dtype)})
+                {"shape": list(arr.shape), "dtype": _dtype_name(arr)})
         self._commit(tmp, final, manifest)
         self._prune()
         return final
@@ -333,7 +388,7 @@ class CheckpointManager:
         arrs = [np.load(os.path.join(d, f"arr_{i:06d}.npy"))
                 for i in range(manifest["n_leaves"])]
         treedef = self._check_like(like, manifest, [a.shape for a in arrs])
-        return _to_device(treedef.unflatten(arrs), device), manifest["extra"]
+        return _to_device(treedef, arrs, manifest, device), manifest["extra"]
 
     # -- delta checkpoints --------------------------------------------------
 
@@ -391,7 +446,7 @@ class CheckpointManager:
         for i, leaf in enumerate(leaves):
             arr = _leaf_to_numpy(leaf, i)
             base_arr = base_arrs[i]
-            meta = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
+            meta = {"shape": list(arr.shape), "dtype": _dtype_name(arr)}
             rows = None
             if arr.shape == base_arr.shape and arr.dtype == base_arr.dtype \
                     and arr.ndim >= 1:
@@ -402,11 +457,11 @@ class CheckpointManager:
                 if idx.nbytes + rows.nbytes >= arr.nbytes:
                     rows = None           # dense diff: full copy is smaller
             if rows is None:
-                np.save(os.path.join(tmp, f"arr_{i:06d}.npy"), arr)
+                _save_leaf(os.path.join(tmp, f"arr_{i:06d}.npy"), arr)
                 meta["delta"] = "full"
             else:
                 np.save(os.path.join(tmp, f"idx_{i:06d}.npy"), idx)
-                np.save(os.path.join(tmp, f"rows_{i:06d}.npy"), rows)
+                _save_leaf(os.path.join(tmp, f"rows_{i:06d}.npy"), rows)
                 meta["delta"] = "rows"
                 meta["n_rows"] = int(idx.size)
             manifest["leaves"].append(meta)
@@ -471,7 +526,7 @@ class CheckpointManager:
         ValueError when any base in the chain is missing, incomplete or
         replaced."""
         arrs, treedef, manifest = self._load_leaves(step, like, partition)
-        return _to_device(treedef.unflatten(arrs), device), manifest["extra"]
+        return _to_device(treedef, arrs, manifest, device), manifest["extra"]
 
 
 # ---------------------------------------------------------------------------

@@ -845,3 +845,100 @@ def test_cuda_lm_prefill_and_decode_match_cpu(cuda, arch):
     for (name, g), (_, w) in zip(got, want):
         err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
         assert err <= 1e-4, (arch, name, err)
+
+
+#: flash vjp against scan on the card: two of tests/test_flash_vjp.py's
+#: CASES (GQA; Skv % chunk != 0) and the training CLI's attention shape
+#: (B 8, S 512, 48 heads of 64, kv_chunk 128)
+FLASH_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, hd, causal, window, prefix, kv_chunk)
+    (2, 16, 16, 4, 2, 8, True, None, 0, 8),
+    (2, 8, 24, 4, 2, 16, True, None, 0, 10),
+    (8, 512, 512, 48, 48, 64, True, None, 0, 128),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_vjp_matches_scan(cuda, case):
+    """The recomputing flash backward (``impl="vjp"``) against autograd
+    through the chunk loop (``impl="scan"``) in float32 on the card, TF32
+    off: 2e-5 forward, 5e-4 on dq, dk and dv (tests/test_flash_vjp.py's)."""
+    from repro_torch.models import layers
+
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, prefix, chunk = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda) * 0.5
+               for s in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd)))
+    g = torch.randn((B, Sq, Hq, hd), generator=gen, device=cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix, kv_chunk=chunk)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for impl in ("vjp", "scan"):
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = layers.flash_attention(*ts, impl=impl, **kw)
+            res[impl] = [out.detach()] + list(torch.autograd.grad(out, ts, g))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, a, b, tol in zip(("out", "dq", "dk", "dv"), res["vjp"], res["scan"],
+                               (2e-5, 5e-4, 5e-4, 5e-4)):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=f"{name} {case}")
+
+
+def _lm_train_trace(spec, params, dev):
+    """Two f32 train steps (B 2, S 64, kv_chunk 32, total_steps 10) from
+    ``params`` (updated in place) -> [(name, tensor on the host)]: each
+    step's metrics, then m, v and the parameters."""
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import TrainCfg, init_opt_state, make_train_step
+    from repro_torch.runtime.checkpoint import tree_flatten
+
+    cfg = TrainCfg(total_steps=10, kv_chunk=32)
+    step, opt, out = make_train_step(spec, cfg), init_opt_state(spec, params, cfg), []
+    for i in range(2):
+        gen = torch.Generator().manual_seed(10 + i)
+        batch = make_batch(spec, 2, 64, gen, "cpu")
+        batch = {k: (v.float() if v.is_floating_point() else v) for k, v in batch.items()}
+        batch["labels"] = torch.randint(0, spec.vocab, batch["tokens"].shape,
+                                        generator=gen, dtype=torch.int32)
+        params, opt, metrics = step(params, opt, {k: v.to(dev) for k, v in batch.items()})
+        out += [(f"step{i}_{k}", v) for k, v in metrics.items()]
+    for name, tree in (("m", opt["adam"]["m"]), ("v", opt["adam"]["v"]),
+                       ("param", params)):
+        out += [(f"{name}{j}", t) for j, t in enumerate(tree_flatten(tree)[0])]
+    return [(k, v.float().cpu()) for k, v in out]
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_cuda_lm_train_steps_match_cpu(cuda, arch):
+    """The LM train step in float32 (TF32 off) from one ``init_params``
+    state: two steps on the card equal the same code on the CPU within 1e-4
+    of each tensor's largest magnitude (loss, aux, grad norm, lr scale, m,
+    v and the parameters; a parameter also within 2 * lr * lr_scale(step
+    1), the most Adam moves an element whose gradient is rounding noise,
+    as tests/_torch_lm.py bounds the reference comparison)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.checkpoint import tree_map
+
+    spec = get_smoke(arch)
+    host = init_params(spec, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+    card = tree_map(lambda t: t.clone().to(cuda), host)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _lm_train_trace(spec, card, cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = _lm_train_trace(spec, host, "cpu")
+    assert [k for k, _ in got] == [k for k, _ in want]
+    slack = 2 * AdamWConfig().lr * float(dict(want)["step1_lr_scale"])
+    errs = {name: (float((g - w).abs().max()) - (slack if name.startswith("param") else 0))
+            / max(float(w.abs().max()), 1e-30)
+            for (name, g), (_, w) in zip(got, want)}
+    print(f"{arch}: largest card vs CPU error {max(errs.values()):.3e}")
+    bad = {k: e for k, e in errs.items() if not e <= 1e-4}
+    assert not bad, (arch, bad)
