@@ -195,7 +195,7 @@ Phases (any failure propagates and the script exits nonzero):
              (minicpm-2b SMOKE, 2 steps then 4 against 4): the restored
              tree equal to the saved one bit for bit, the tail losses
              within 1e-3.
-10. serve   the two merged checkpoints the CLI wrote (float32, and int8
+9h. serve   the two merged checkpoints the CLI wrote (float32, and int8
    from      cold attributes), served by ``repro_torch.launch.serve_gs.main``
    ckpt      (4 views, 2 near and 2 far; max_batch 8; two passes; few
              views because each cold pass runs the dense assignment sweep,
@@ -208,6 +208,22 @@ Phases (any failure propagates and the script exits nonzero):
              wherever both served the same splats; the forward kernel held
              against its plain version (1e-5) and timed on the float32
              run's first cold dispatch (8x16 tiles).
+10. tooling ``launch/cost_analysis.py``, ``dryrun.py`` and
+             ``profile_cell.py`` against the card.  10a: ``dryrun.main``
+             in-process for minicpm-2b and qwen1.5-4b at their SPECs
+             (train_4k, prefill_32k, decode_32k) and the dense gs-kingsnake
+             cell, on ``meta`` tensors: every record ``ok``, each one's
+             roofline terms and ``bound_s`` printed.  10b: phase 9g's step
+             (minicpm-2b SPEC, B 8 x 512, kv_chunk 128, flash vjp) analyzed
+             on ``meta`` tensors; gate: its ``bound_s`` (FLOPs at the bf16
+             peak or compulsory bytes at the HBM rate) <= the device-busy
+             time of the step 9g profiled; printed: that share and the
+             eager byte count's time against the same device time.  10c
+             (run right after phase 6, whose inputs it needs): one step of
+             phase 6's 16x16 ``fit_partition`` step on the card under
+             ``analyze``; gates: both kernels in ``per_op`` as many times
+             as the launch counters rose, ``bound_s`` <= the device-busy
+             time a step of phase 6's profile; printed: the share.
 
 Kernel times are CUDA-event times over a run of back-to-back launches per
 event pair, divided by the count (``ms``); ``call_ms`` brackets one call,
@@ -291,6 +307,10 @@ from repro_torch.models import TrainCfg, init_opt_state  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.models import make_train_step  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cost_analysis import KERNEL_OPS, analyze  # noqa: E402
+from repro_torch.launch.profile_cell import device_profile  # noqa: E402
+from repro_torch.models import opt_state_specs, param_specs  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 #: cores, and HBM3 bandwidth
@@ -300,8 +320,8 @@ PEAK_BYTES_PER_S = 3.35e12
 #: it (the notes in rasterize_fwd.cu and rasterize_bwd.cu): the count of
 #: work behind each bound, not the instructions a kernel issues (those are
 #: counted from SASS for the issue-rate ceiling, ``rasterize.hot_loop``)
-OPS_PER_SPLAT_PIXEL = 27
-BWD_OPS_PER_SPLAT_PIXEL = 85
+OPS_PER_SPLAT_PIXEL = KERNEL_OPS["rasterize_fwd"]
+BWD_OPS_PER_SPLAT_PIXEL = KERNEL_OPS["rasterize_bwd"]
 #: warp instructions an SM issues per clock (4 schedulers, one each)
 ISSUE_PER_CLOCK = 4
 TOL = 1e-5
@@ -1243,36 +1263,6 @@ def train_breakdown_phase(rec):
     return stages
 
 
-def device_profile(fn, steps, dev):
-    """``fn()`` run ``steps`` times under ``torch.profiler`` (device activity
-    only) -> (rows [(kernel name, (calls, us))] by device time, the share of
-    the window's wall time in which the device ran anything, the window's
-    wall us, the device event count)."""
-    sync(dev)
-    act = torch.profiler.ProfilerActivity
-    on_card = dev.type == "cuda"
-    with torch.profiler.profile(activities=[act.CUDA if on_card else act.CPU]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        sync(dev)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kind = torch.autograd.DeviceType.CUDA if on_card else torch.autograd.DeviceType.CPU
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == kind
-    )
-    by_name, busy, reach = {}, 0.0, -math.inf
-    for start, end, name in spans:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + end - start)
-        busy += max(0.0, end - max(start, reach))  # union of the intervals
-        reach = max(reach, end)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    return rows, busy / wall_us, wall_us, len(spans)
-
-
 def train_profile_phase(rec, steps=3, top=12):
     """Device time by kernel name over ``steps`` train steps on partition
     0's step-0 inputs (``torch.profiler``, device activity only, after one
@@ -1294,6 +1284,50 @@ def train_profile_phase(rec, steps=3, top=12):
     for name, (n, t) in rows[:top]:
         log(f"  {t / steps / 1e3:8.3f} ms/step  x{n // steps:<4d} {name[:90]}")
     return rows, share, wall_us / steps / 1e3
+
+
+def gs_bound_phase(rec, profile):
+    """10c: one step of phase 6's 16x16 ``fit_partition`` step on its own
+    inputs, on the card under ``cost_analysis.analyze`` -> record; gates:
+    both kernels in ``per_op`` as many times as the launch counters rose,
+    and ``bound_s`` <= the device-busy time of a step of phase 6's profile
+    (``profile``: ``train_profile_phase``'s rows, busy share, ms a step)."""
+    g, cam, grid, _, caps, assign = step_inputs(rec)
+    cfg, gt0, mask0 = rec["cfg"], rec["gt0"], rec["mask0"]
+    step = train_mod.make_train_step(cfg, grid, rec["extent"], tier_caps=caps, **assign)
+    opt = init_opt(g)
+    before = {"rasterize_fwd": rasterize.LAUNCHES, "rasterize_bwd": rasterize.BWD_LAUNCHES}
+    t0 = time.perf_counter()
+    hlo = analyze(step, g, opt, cam, gt0, mask0)
+    sync(cam.view.device)
+    seconds = time.perf_counter() - t0
+    launched = {"rasterize_fwd": rasterize.LAUNCHES - before["rasterize_fwd"],
+                "rasterize_bwd": rasterize.BWD_LAUNCHES - before["rasterize_bwd"]}
+    seen = {k: hlo["per_op"].get(k, {}).get("count", 0) for k in launched}
+    if seen != launched or 0 in launched.values():
+        raise AssertionError(f"kernel launches {launched}, per_op {seen}")
+    _, share, step_ms = profile
+    return bound_against_card("10c GS step", hlo, share * step_ms / 1e3, launched=launched,
+                              kernel_ops={k: hlo["per_op"][k]["flops"] for k in launched},
+                              seconds=seconds)
+
+
+def bound_against_card(label, hlo, busy_s, **extra):
+    """``analyze``'s counts of a step (``hlo``) against the device-busy
+    seconds its profile measured -> record, logged; gate: ``bound_s`` (the
+    FLOPs at the bf16 peak or the compulsory bytes at the HBM rate) <=
+    ``busy_s``.  The eager byte count at the HBM rate is logged beside it,
+    ungated (it is no bound: the L2 serves re-reads)."""
+    out = {"bound_s": dryrun.bound_s(hlo), "busy_s": busy_s, "flops": hlo["flops"],
+           "matmul_flops": hlo["matmul_flops"], "compulsory_bytes": hlo["compulsory_bytes"],
+           "hbm_bytes": hlo["hbm_bytes"], **extra}
+    out["share"] = out["bound_s"] / busy_s
+    out["eager_bytes_share"] = hlo["hbm_bytes"] / dryrun.HBM_BW / busy_s
+    log(f"{label} bound vs the card: {json.dumps(out)}")
+    if not out["bound_s"] <= busy_s:
+        raise AssertionError(f"{label}: bound {out['bound_s']} s above the device's "
+                             f"{busy_s} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3050,7 +3084,8 @@ def lm_step_profile(spec, cfg, batch, device, top=15):
 
 def lm_vjp_vs_scan(device):
     """One train step at the CLI's SPEC and request under each flash impl
-    (vjp, then scan, each from the same initial state) -> records; gates:
+    (vjp, then scan, each from the same initial state) -> (records, the
+    vjp step's ``lm_step_profile``); gates:
     loss within ``LM_VJP_LOSS_TOL`` and grad norm within
     ``LM_VJP_GNORM_TOL``, relative."""
     a = LM_TRAIN
@@ -3064,13 +3099,13 @@ def lm_vjp_vs_scan(device):
         out.append(lm_train_step_once(spec, cfg, batch, device, impl))
         torch.cuda.empty_cache()
     log(f"LM train step, flash vjp vs scan: {json.dumps(out)}")
-    lm_step_profile(spec, cfg, batch, device)
+    profile = lm_step_profile(spec, cfg, batch, device)
     v, s = out
     loss_ok = abs(v["loss"] - s["loss"]) <= LM_VJP_LOSS_TOL * abs(s["loss"])
     gnorm_gap = abs(v["grad_norm"] - s["grad_norm"])
     if not (loss_ok and gnorm_gap <= LM_VJP_GNORM_TOL * s["grad_norm"]):
         raise AssertionError(f"vjp vs scan: {out}")
-    return out
+    return out, profile
 
 
 def attention_train_yardstick(device, *, batch=8, seq=512, heads=48, hd=64,
@@ -3265,7 +3300,7 @@ def lm_train_phase(device, tmp):
     torch.cuda.empty_cache()
     log(f"LM train phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         "allocated after the CLI")
-    out["vjp_vs_scan"] = lm_vjp_vs_scan(device)
+    out["vjp_vs_scan"], out["profile"] = lm_vjp_vs_scan(device)
     out["yardstick"] = attention_train_yardstick(device)
     torch.cuda.empty_cache()
     out["smoke_vs_cpu"] = lm_train_smoke_vs_cpu(device)
@@ -3282,6 +3317,59 @@ def lm_train_phase(device, tmp):
         raise AssertionError(f"a compositor kernel launched on the LM path: "
                              f"{out['launches']}")
     return out
+
+
+#: phase 10a's dry-run cells: two SPEC archs at their train, prefill and
+#: decode shapes, and the dense kingsnake GS cell
+DRYRUN_ARCHS = ("minicpm-2b", "qwen1.5-4b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_GS = "gs-kingsnake"
+
+
+def dryrun_phase(tmp):
+    """10a: ``launch.dryrun.main`` in-process on ``DRYRUN_ARCHS`` x
+    ``DRYRUN_SHAPES`` and ``DRYRUN_GS`` (``meta`` tensors, the host alone)
+    -> {cell: record}; gate: every record ``ok``."""
+    t0 = time.perf_counter()
+    out = tmp / "dryrun"
+    rc = dryrun.main(["--arch", ",".join(DRYRUN_ARCHS), "--shape",
+                      ",".join(DRYRUN_SHAPES), "--out", str(out)])
+    rc |= dryrun.main(["--gs", "--arch", DRYRUN_GS, "--out", str(out)])
+    recs = {p.stem: json.loads(p.read_text()) for p in sorted((out / "card").glob("*.json"))}
+    for name, rec in recs.items():
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {name}: {rec.get('traceback', rec)}")
+        r = rec["roofline"]
+        log(f"10a {name}: compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective {r['collective_s'] * 1e3:.3f} ms "
+            f"-> {rec['bottleneck']}; bound_s {rec['bound_s'] * 1e3:.3f} ms; flops "
+            f"{rec['hlo']['flops']:.6g} (matmul {rec['hlo']['matmul_flops']:.6g}), "
+            f"compulsory bytes {rec['hlo']['compulsory_bytes']:.6g}, useful "
+            f"{rec['useful_flops_ratio']:.4f}, trace {rec['trace_s']} s")
+    want = len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES) + 1
+    if rc or len(recs) != want:
+        raise AssertionError(f"dry run: exit {rc}, {len(recs)} of {want} records")
+    log(f"10a dry run {time.perf_counter() - t0:.3f} s")
+    return recs
+
+
+def lm_bound_phase(profile):
+    """10b: phase 9g's step (``LM_TRAIN``: minicpm-2b SPEC, B 8 x 512,
+    kv_chunk 128, flash vjp) under ``cost_analysis.analyze`` on ``meta``
+    tensors -> record; gate: ``bound_s`` <= the device-busy time of the step
+    9g profiled (``profile``: ``lm_step_profile``'s record)."""
+    a = LM_TRAIN
+    spec = get_spec(a["arch"])
+    cfg = TrainCfg(total_steps=a["steps"], schedule=spec.lr_schedule,
+                   kv_chunk=a["kv_chunk"])
+    batch = {k: torch.empty((a["batch"], a["seq"]), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    hlo = analyze(make_train_step(spec, cfg), param_specs(spec),
+                  opt_state_specs(spec, cfg), batch)
+    return bound_against_card("10b LM step", hlo,
+                              profile["busy_share"] * profile["wall_ms"] / 1e3,
+                              seconds=time.perf_counter() - t0)
 
 
 def main(argv=None):
@@ -3370,7 +3458,9 @@ def main(argv=None):
     tiers = train_timing_phase(records[0], issue, save_dir=save_dir)
     bwd_stats = tiers["bwd"][max(tiers["bwd"])]  # the top tier
     train_breakdown_phase(records[0])
-    train_profile_phase(records[0])
+    profile = train_profile_phase(records[0])
+    # 10c. the counted bound of the same step against the card
+    gs_bound = gs_bound_phase(records[0], profile)
 
     # 7. checkpoints: resume a partition (counts zeroed inside the phase)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -3384,7 +3474,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
         # 8. the training CLI: the distributed trainer on a world-1 NCCL
-        # group (counts zeroed just before it), then 10. serving the merged
+        # group (counts zeroed just before it), then 9h. serving the merged
         # checkpoints it wrote
         roots, merged, cli_launches, cli_tiers, cli_rec = train_cli_phase(
             device, tmp, issue
@@ -3416,6 +3506,14 @@ def main(argv=None):
         ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"serve from checkpoint: peak device memory {peak:.2f} GiB")
+        # 10. the tooling: the dry run, and the LM step's counted bound
+        # against the card (10c ran after phase 6)
+        dryrun_phase(tmp)
+        lm_bound = lm_bound_phase(lm_train["profile"])
+        log(f"10. counted bound / device-busy time: LM step {lm_bound['share']:.4f}, "
+            f"GS step {gs_bound['share']:.4f}; eager bytes / HBM rate against the "
+            f"same time: {lm_bound['eager_bytes_share']:.4f}, "
+            f"{gs_bound['eager_bytes_share']:.4f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(smi, flush=True)

@@ -44,6 +44,9 @@ import torch
 #: process -- one per call that launched the kernel, and nowhere else
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+#: None, or (while ``launch.cost_analysis.analyze`` runs) a list that each
+#: launch appends ``(kernel name, T, K, F, tile_h, tile_w)`` to
+RECORDER = None
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source; each builds into its own library
@@ -288,6 +291,8 @@ def rasterize_fwd(feats, origins, *, tile_h: int, tile_w: int):
                            f"{err}")
     with _LOCK:
         LAUNCHES += 1
+        if RECORDER is not None:
+            RECORDER.append(("rasterize_fwd", T, K, F, tile_h, tile_w))
     return out
 
 
@@ -330,4 +335,6 @@ def rasterize_bwd(feats, origins, out, gout, *, tile_h: int, tile_w: int):
                            f"{err}")
     with _LOCK:
         BWD_LAUNCHES += 1
+        if RECORDER is not None:
+            RECORDER.append(("rasterize_bwd", T, K, F, tile_h, tile_w))
     return gfeats

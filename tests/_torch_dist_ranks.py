@@ -792,3 +792,29 @@ def card_exchange_rank(mesh, scene_path, out_dir, reps=10):
     if dist.get_rank() == 0:
         with open(os.path.join(out_dir, "exchange.json"), "w") as f:
             json.dump(out, f)
+
+
+def cost_rank(mesh, out_dir, dataset, res, n_parts):
+    """``dryrun.gs_train_cell`` of ``dataset`` on this world's mesh, one
+    step under ``cost_analysis.analyze`` (pods of world / n_pod ranks).
+    Every rank writes its summary (``per_op`` dropped), the bytes a splat
+    of its f32 wire tables and the rows it gathers from."""
+    from repro_torch.core.projection import project
+    from repro_torch.launch.cost_analysis import analyze
+    from repro_torch.launch.dryrun import gs_train_cell
+
+    step, args, meta = gs_train_cell(dataset, mesh, res=res, n_parts=n_parts,
+                                     view_batch=1)
+    pod_size = dist.get_world_size() // mesh.axis_size("pod") \
+        if "pod" in mesh.axis_names else 0
+    r = analyze(step, *args, pod_size=pod_size)
+    r.pop("per_op")
+    g, batch = args[0], args[2]
+    with torch.no_grad():
+        tables = D.wire_tables(project(g, select(batch["cam"], 0)), "f32")
+    r["bytes_per_splat"] = D.wire_bytes_per_splat(tables)
+    r["rows"] = g.means.shape[0] * g.means.shape[1]
+    r["meta"] = meta
+    with open(os.path.join(out_dir, f"cost_rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(r, f)

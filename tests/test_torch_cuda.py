@@ -322,6 +322,36 @@ def _tiny_fit(dev):
     return g, cams, torch.full((2, 32, 32, 3), 0.5, device=dev), cfg
 
 
+def test_cuda_cost_analysis_sees_kernel_launches(cuda):
+    """``launch.cost_analysis.analyze`` over one tiered train step of the
+    tiny scene on the card: no dispatcher op stands for a compositor launch
+    (``ctypes``), so each is recorded by its wrapper and appears in
+    ``per_op`` under the kernel's name, as many times as the launch
+    counters rose, charged a whole number of its operations a splat-pixel
+    (27 / 85) and none of them ``matmul_flops``."""
+    from repro_torch.core.tiling import TileGrid
+    from repro_torch.core.train import init_opt, make_train_step
+    from repro_torch.launch.cost_analysis import KERNEL_OPS, analyze
+
+    g, cams, gts, cfg = _tiny_fit(cuda)
+    step = make_train_step(cfg, TileGrid(32, 32, cfg.tile_h, cfg.tile_w),
+                           1.0)
+    fwd, bwd = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+    r = analyze(step, g, init_opt(g), cams, gts)
+    launched = {"rasterize_fwd": rasterize.LAUNCHES - fwd,
+                "rasterize_bwd": rasterize.BWD_LAUNCHES - bwd}
+    assert rasterize.RECORDER is None
+    assert min(launched.values()) > 0
+    kernel_flops = 0.0
+    for name, n in launched.items():
+        row = r["per_op"][name]
+        assert row["count"] == n
+        assert row["flops"] > 0 and row["flops"] % KERNEL_OPS[name] == 0
+        assert row["bytes"] > 0
+        kernel_flops += row["flops"]
+    assert r["matmul_flops"] + kernel_flops <= r["flops"]
+
+
 def test_cuda_prefetcher_side_stream_renders_equal(cuda):
     """``prepare_timestep`` run by ``TimestepPrefetcher`` on its own stream
     gives the GT renders and masks of the same call on the main stream,
