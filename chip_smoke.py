@@ -129,7 +129,9 @@ Phases (any failure propagates and the script exits nonzero):
              later timestep warm with no tier probe before its first step,
              the restart's warm tree equal to the first run's last commit
              leaf for leaf, every loss finite, live splats <= max(C, live
-             before) at every densify, both kernels launched, each delta's
+             before) at every densify and a densify event in every
+             timestep (so the restart skips the split noise of the events
+             before it), both kernels launched, each delta's
              manifest naming its base step and that base's digest.
              Printed: step ms per timestep, each timestep's prep seconds in
              the worker against the main thread's wait in ``get()``, the
@@ -224,6 +226,24 @@ Phases (any failure propagates and the script exits nonzero):
              ``analyze``; gates: both kernels in ``per_op`` as many times
              as the launch counters rose, ``bound_s`` <= the device-busy
              time a step of phase 6's profile; printed: the share.
+11. torch-  the paper's launch, run after phase 9d: the training CLI under
+   run       ``python -m torch.distributed.run --standalone
+             --nproc-per-node N -m repro_torch.launch.train`` with N =
+             min(4, cards), one process a card, each joining one NCCL group
+             over ``env://`` (``cuda:LOCAL_RANK``): phase 8's arguments with
+             8 steps (no densify event yet), its per-step losses within 1e-3
+             of phase 8's first 8; then phase 9d's arguments with one more
+             timestep in 9d's directory: the N ranks restart the chain the
+             world-1 run committed (at timestep 3) and leave its commits as
+             they were; then ``python -m repro_torch.launch.serve_gs`` of
+             what it merged, 2 views, two passes (the repeat all hits).
+             Every rank of every run launches both kernels.  Printed, from
+             the record line the CLI's rank 0 prints: per rank the ingest s
+             (the timeseries' prep s in the worker and wait s in
+             ``get()``), median step ms, peak GiB and launches; rank 0's
+             merge + render + write s and peak after it; PSNR / SSIM;
+             checkpoint bytes; the serve's restore s and cold / warm req/s;
+             the phase's seconds by run.
 
 Kernel times are CUDA-event times over a run of back-to-back launches per
 event pair, divided by the count (``ms``); ``call_ms`` brackets one call,
@@ -295,6 +315,7 @@ from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core.merge import merge_partitions  # noqa: E402
 from repro_torch.launch import serve_gs  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch import torchrun as torchrun_mod  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.checkpoint import tree_flatten, tree_map  # noqa: E402
 from repro_torch.configs import all_arch_ids, get_smoke, get_spec  # noqa: E402
@@ -2435,13 +2456,16 @@ def timeseries_phase(
     """``python -m repro_torch.launch.train --gs --timeseries ...`` (the
     defaults: the full-size kingsnake scene, 2 timesteps of 30 steps,
     ``--densify-cap cap``) in-process on a world-1 process group, then a
-    restart with one more timestep in the same directory -> the launches of
-    both runs (both counts set to 0 just before the first and read just
-    after the second).  Gates: timestep 0 cold, every later timestep warm
-    with no tier probe before its first step; the restart's warm tree equal
-    to the first run's committed tree, leaf by leaf; every loss finite;
-    live splats <= max(cap, live before) at every densify; both kernels
-    launched; the delta manifests carry their base step and its digest."""
+    restart with one more timestep in the same directory -> (the launches of
+    both runs: both counts set to 0 just before the first and read just
+    after the second; the series for phase 11: argv without
+    ``--timesteps``, timesteps committed, steps a timestep, directory).
+    Gates: timestep 0 cold, every later timestep warm with no tier probe
+    before its first step; the restart's warm tree equal to the first
+    run's committed tree, leaf by leaf; every loss finite; live splats <=
+    max(cap, live before) at every densify, and a densify event in every
+    timestep; both kernels launched; the delta manifests carry their base
+    step and its digest."""
     root = tmp / "timeseries"
     argv = ["--gs", "--timeseries", "--dataset", dataset]
     argv += ["--full"] if full else []
@@ -2490,6 +2514,14 @@ def timeseries_phase(
                     raise AssertionError(f"timestep {t}: densify {e[1:]} past {cap}")
     if not any(b >= cap or a == cap for _, b, a in densify_events):
         log(f"timeseries: the cap {cap} held no partition back: {densify_events}")
+    # every timestep densifies, so timestep 1 warm-starts from a densified
+    # state and the restart skips the split noise of the earlier events
+    if {t for t, *_ in densify_events} != set(range(timesteps + 1)):
+        raise AssertionError(f"a timestep without a densify event: {densify_events}")
+    skipped = [i for i in range(timesteps * steps)
+               if i >= densify_from and (i + 1) % densify_every == 0]
+    log(f"timeseries: the restart skipped the split noise of the densify events "
+        f"at steps {skipped}")
     # the restart's warm seed is the first run's last commit, leaf by leaf
     warm_tree = fits[timesteps]["warm"][0]
     want = first["committed"][timesteps * steps]
@@ -2539,6 +2571,153 @@ def timeseries_phase(
     for t, (s, fit) in enumerate(zip(steps_ms, fits)):
         log(f"timeseries timestep {t} step ms {[round(x, 3) for x in s]}")
         log(f"timeseries timestep {t} losses {[round(x, 6) for x in fit['losses']]}")
+    series = {"argv": argv, "timesteps": timesteps + 1, "steps": steps, "root": root}
+    return launches, series
+
+
+#: the ``torchrun`` phase: the GS CLI's steps (no densify event before step
+#: 60, so they are the train-CLI phase's first steps), the serve's views
+TORCHRUN_STEPS = 8
+TORCHRUN_SERVE_VIEWS = 2
+TORCHRUN_LOSS_RTOL = 1e-3
+TORCHRUN_TIMEOUT_S = 600
+
+
+def run_child(argv, label):
+    """``argv`` as a child process with this checkout's ``src`` on its path
+    (``launch.torchrun.Child``: stopped with all it started past
+    TORCHRUN_TIMEOUT_S), its output echoed -> its standard output; a
+    non-zero exit raises."""
+    log(f"{label}: {' '.join(argv)}")
+    out = torchrun_mod.Child(argv, env=torchrun_mod.child_env(str(ROOT / "src")),
+                             timeout=TORCHRUN_TIMEOUT_S).wait()
+    for line in out.splitlines():
+        log(f"{label} | {line}")
+    return out
+
+
+def torchrun(n, argv, label):
+    """``python -m torch.distributed.run --standalone --nproc-per-node n -m
+    repro_torch.launch.train argv``: the CLI as users launch it, one process
+    per card -> its standard output."""
+    entry = ["-m", "repro_torch.launch.train"] + list(argv)
+    return run_child(torchrun_mod.torchrun_argv(n, entry), label)
+
+
+def log_record(label, rec):
+    for line in train_cli.record_lines(rec):
+        log(f"{label} {line}")
+
+
+def rank_launches(label, recs, least):
+    """Both kernels' launches summed over every rank of the records'
+    runs; each rank of each run must have launched each >= ``least``."""
+    total = {"fwd": 0, "bwd": 0}
+    for rec in recs:
+        for r in rec["ranks"]:
+            fwd, bwd = r["launches"]
+            if min(fwd, bwd) < least:
+                raise AssertionError(f"{label}: rank {r['rank']} launched {fwd} / {bwd}")
+            total["fwd"] += fwd
+            total["bwd"] += bwd
+    return total
+
+
+def chain_files(chain):
+    """Every committed step of a delta chain -> {step: {file: bytes}}."""
+    return {
+        int(d.name[5:]): {f.name: f.read_bytes() for f in sorted(d.iterdir())}
+        for d in sorted(chain.glob("step_*"))
+    }
+
+
+def torchrun_phase(tmp, cli_losses, series, *, device="cuda", n=None,
+                   dataset="kingsnake", full=True, resolution=1024, views=16):
+    """11. The paper's launch: the CLI under ``torchrun`` on N = min(4,
+    cards) cards (``n``), one process a card, each joining over ``env://``:
+    the GS CLI (phase 8's arguments, TORCHRUN_STEPS steps), then a restart
+    of phase 9d's timeseries (``series``: its argv, committed timesteps and
+    steps a timestep) with one more timestep, then ``serve_gs`` of what that
+    merged -> the launches of every rank of both runs and of the serve (each
+    process's counts start at 0).  ``device="cpu"`` rehearses it on gloo
+    ranks, where nothing launches."""
+    on_card = device == "cuda"
+    n = n or min(4, torch.cuda.device_count())
+    kw = dict(dataset=dataset, full=full, parts=2, resolution=resolution, views=views)
+    root = tmp / "torchrun"
+    argv = cli_argv(root / "gs", device, steps=TORCHRUN_STEPS, densify_every=10,
+                    densify_from=60, ckpt_every=0, **kw)
+    t0 = time.perf_counter()
+    text = torchrun(n, argv, "torchrun gs")
+    gs_s = time.perf_counter() - t0
+    group = "nccl on cuda" if on_card else "gloo on cpu"
+    if f"({n} ranks, {group})" not in text:
+        raise AssertionError("the torchrun ranks did not join one NCCL group")
+    rec = train_cli.read_record(text, "[train-gs]")
+    log_record("torchrun gs", rec)
+    losses = np.asarray(rec["losses"])
+    want = np.asarray(cli_losses[:TORCHRUN_STEPS])
+    gap = float(np.max(np.abs(losses - want) / np.abs(want)))
+    log(
+        f"torchrun gs: {n} ranks, {len(losses)} steps, largest relative gap to "
+        f"the train-CLI phase's first steps {gap:.3e} (gate {TORCHRUN_LOSS_RTOL})"
+    )
+    if len(losses) != TORCHRUN_STEPS or not gap <= TORCHRUN_LOSS_RTOL:
+        raise AssertionError(f"torchrun losses {losses} against {want}")
+    if not (math.isfinite(rec["psnr"]) and math.isfinite(rec["ssim"])):
+        raise AssertionError(f"torchrun merged metrics {rec['psnr']} {rec['ssim']}")
+
+    # --timeseries: phase 9d's chain (world 1, in-process) restarted on N
+    # ranks with one more timestep; its commits must stay as they were
+    T, S, ts_root = series["timesteps"], series["steps"], series["root"]
+    chain = ts_root / "timeseries"
+    before = chain_files(chain)
+    t0 = time.perf_counter()
+    text = torchrun(n, series["argv"] + ["--timesteps", str(T + 1)], "torchrun ts")
+    ts_s = time.perf_counter() - t0
+    restart = train_cli.read_record(text, "[train-gs-ts]")
+    log_record("torchrun timeseries restart", restart)
+    if restart["t_start"] != T or len(restart["losses"]) != 1:
+        raise AssertionError(f"restart at {restart['t_start']}: {restart['losses']}")
+    if len(restart["losses"][0]) != S or not np.isfinite(restart["losses"][0]).all():
+        raise AssertionError(f"torchrun timeseries losses {restart['losses']}")
+    if f"restarting at timestep {T} (chain committed through step {T * S})" not in text:
+        raise AssertionError("the restart did not resume from the committed chain")
+    after = chain_files(chain)
+    if {k: after[k] for k in before} != before or sorted(after) != sorted(before) + [
+        (T + 1) * S
+    ]:
+        raise AssertionError(f"the restart's chain {sorted(after)}: an earlier commit changed")
+    man = json.loads(after[(T + 1) * S]["manifest.json"])
+    if man["delta"]["base_step"] != T * S:
+        raise AssertionError(f"the restart's delta {man['delta']}")
+    del before, after
+
+    # serve what the restart merged, on one card
+    tel = root / "serve.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_gs", "--ckpt-dir"]
+    cmd += [str(ts_root), "--views", str(TORCHRUN_SERVE_VIEWS), "--passes", "2"]
+    cmd += ["--device", device, "--telemetry-json", str(tel)]
+    t0 = time.perf_counter()
+    run_child(cmd, "serve_gs")
+    serve_s = time.perf_counter() - t0
+    served = json.loads(tel.read_text())
+    cold, warm = served["passes"]
+    log(
+        f"serve_gs of the torchrun timeseries' merged checkpoint: restore "
+        f"{served['restore_s']:.3f} s, cold {cold['req_per_s']:.3f} req/s "
+        f"({cold['wall_s']:.3f} s), warm {warm['req_per_s']:.3f} req/s, "
+        f"forward launches {served['kernel_launches']}"
+    )
+    if warm["hits"] != warm["requests"] or (on_card and served["kernel_launches"] <= 0):
+        raise AssertionError(f"serve_gs passes {served['passes']}")
+    launches = rank_launches("torchrun", [rec, restart], int(on_card))
+    launches["fwd"] += served["kernel_launches"]
+    log(
+        f"torchrun phase: {gs_s + ts_s + serve_s:.3f} s (gs {gs_s:.3f}, timeseries "
+        f"restart {ts_s:.3f}, serve_gs {serve_s:.3f}); launches (every rank, and "
+        f"the serve) {launches}"
+    )
     return launches
 
 
@@ -3488,11 +3667,16 @@ def main(argv=None):
         # the densify cap: 256 splats over the smaller partition's live
         # count at t = 0, so it holds both partitions back
         cap = int(cli_rec["g0"].active.sum(1).min()) + 256
+        cli_losses = list(cli_rec["losses"])
         del cli_rec
         torch.cuda.empty_cache()
         # 9d. the timeseries driver through the CLI, and a restart
-        ts_launches = timeseries_phase(device, tmp, cap)
+        ts_launches, series = timeseries_phase(device, tmp, cap)
         torch.cuda.empty_cache()
+        # 11. the CLI under torchrun, one process a card: the GS CLI, a
+        # restart of 9d's chain, and serve_gs of what it merged (child
+        # processes: their counts start at 0)
+        tr_launches = torchrun_phase(tmp, cli_losses, series)
         # 9e. the coarse pre-cull and extract_isosurface
         coarse_launches = coarse_phase(part0, device)
         del part0
@@ -3536,13 +3720,16 @@ def main(argv=None):
         f"{coarse_launches['fwd']} bwd {coarse_launches['bwd']}; serve from "
         f"checkpoint fwd {ckpt_serve_launches}; LM serve fwd "
         f"{lm['launches']['fwd']} bwd {lm['launches']['bwd']}; LM train fwd "
-        f"{lm_train['launches']['fwd']} bwd {lm_train['launches']['bwd']}"
+        f"{lm_train['launches']['fwd']} bwd {lm_train['launches']['bwd']}; "
+        f"torchrun (every rank, and its serve) fwd {tr_launches['fwd']} bwd "
+        f"{tr_launches['bwd']}"
     )
     fwd_launches = serve_launches + train_launches["fwd"]
     fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
     fwd_launches += axes_launches["fwd"] + wire_launches["fwd"]
     fwd_launches += ex_launches["fwd"] + ckpt_serve_launches
     fwd_launches += ts_launches["fwd"] + coarse_launches["fwd"]
+    fwd_launches += tr_launches["fwd"]
     kernels = [
         {
             "name": "rasterize_fwd",
@@ -3566,7 +3753,8 @@ def main(argv=None):
             "replaces": "src/repro/kernels/rasterize.py:169",
             "launches": train_launches["bwd"] + resume_launches["bwd"]
             + cli_launches["bwd"] + axes_launches["bwd"] + wire_launches["bwd"]
-            + ex_launches["bwd"] + ts_launches["bwd"] + coarse_launches["bwd"],
+            + ex_launches["bwd"] + ts_launches["bwd"] + coarse_launches["bwd"]
+            + tr_launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],

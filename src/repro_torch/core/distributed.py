@@ -57,6 +57,7 @@ over the "part" shards.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, NamedTuple, Optional
 
 import numpy as np
@@ -84,7 +85,8 @@ from repro_torch.core.train import (GSOptState, GSTrainCfg,
                                     densify_and_prune, group_lrs, init_opt)
 from repro_torch.kernels.ops import rasterize_tiles, rasterize_tiles_tiered
 from repro_torch.optim.compress import compress_grads
-from repro_torch.runtime.checkpoint import tree_flatten, tree_map
+from repro_torch.runtime.checkpoint import (tree_flatten, tree_map,
+                                            unshaped_like)
 
 #: the forward's table layouts
 GATHER_MODES = ("f32", "split")
@@ -260,6 +262,57 @@ def gather_partitions(tree, mesh):
         return y.to(torch.bool) if x.dtype == torch.bool else y
     with torch.no_grad():
         return tree_map(gather, tree)
+
+
+def fit_slots(tree, like):
+    """A global (g, opt[, err]) state tree, ``like``'s structure, fitted to
+    ``like``'s N: the CLI rounds its capacity up to a multiple of the
+    "part" size, so a checkpoint written on another mesh may hold another
+    N'.  The slot axis is axis 1 of every splat field, moment, densify sum
+    and residual (the step counter has none); every other axis must be
+    ``like``'s, else ValueError (the checkpoint is another run's).  Slots
+    past a shorter N' come from ``like`` and must be dead there; slots past
+    a longer N' are cut and must be dead (else ValueError) -> the tree."""
+    (g, opt, *err), (g_like, opt_like, *err_like) = tree, like
+    n_had, n = g.means.shape[1], g_like.means.shape[1]
+
+    def fit(name, x, ref):
+        want = (ref.shape[0], n_had) + tuple(ref.shape[2:])
+        if tuple(x.shape) != want:
+            raise ValueError(
+                f"checkpoint leaf {name}: shape {tuple(x.shape)} != expected "
+                f"{want} (axis 1, the slots, may differ): it is not this "
+                f"run's layout")
+        if n <= n_had:
+            return x[:, :n]
+        return torch.cat([x, ref[:, n_had:].to(x.device, x.dtype)], 1)
+
+    def fit_fields(prefix, t, t_like):
+        # a dict of fields (moments, residual) or a NamedTuple (the splats)
+        if isinstance(t, dict):
+            return {k: fit(prefix + k, x, t_like[k]) for k, x in t.items()}
+        return type(t)(*(fit(prefix + k, x, getattr(t_like, k))
+                         for k, x in t._asdict().items()))
+
+    if tuple(opt.step.shape) != tuple(opt_like.step.shape):
+        raise ValueError(f"checkpoint leaf step: shape {tuple(opt.step.shape)}"
+                         f" != expected {tuple(opt_like.step.shape)}")
+    out = (fit_fields("", g, g_like), opt._replace(
+        m=fit_fields("m.", opt.m, opt_like.m),
+        v=fit_fields("v.", opt.v, opt_like.v),
+        grad_accum=fit("grad_accum", opt.grad_accum, opt_like.grad_accum),
+        grad_count=fit("grad_count", opt.grad_count, opt_like.grad_count)))
+    out += tuple(fit_fields("err.", e, e_like)
+                 for e, e_like in zip(err, err_like))
+    if n < n_had and bool(g.active[:, n:].any()):
+        raise ValueError(
+            f"the checkpoint holds {n_had} slots a partition, live past "
+            f"{n}: it does not fit this run's {n} slots")
+    if n > n_had and bool(g_like.active[:, n_had:].any()):
+        raise ValueError(
+            f"the checkpoint holds {n_had} slots a partition and this run's "
+            f"{n}-slot layout is live past them: it is not this run's")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1615,7 +1668,8 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
                    ckpt_every: int = 0, log_every: int = 0,
                    warm_start=None, densify_cap: Optional[int] = None,
                    exchange_schedule=None,
-                   densify_noise: Optional[Iterable] = None):
+                   densify_noise: Optional[Iterable] = None,
+                   step_times: Optional[list] = None):
     """Distributed tier-schedule driver: every partition of the GLOBAL
     batched (P, N) layout trained in one step on ``mesh``, with the same
     probe -> train -> overflow growth -> densify -> re-probe lifecycle as
@@ -1665,7 +1719,11 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
     or a warm start restores it without a probe.  ``rebalance_every=R``
     runs ``rebalance_partitions`` on the gathered state every R steps at
     ``rebalance_threshold``; a deal that moved rows drops the demand,
-    re-probes the budget and zeroes the int8 residual."""
+    re-probes the budget and zeroes the int8 residual.
+
+    ``step_times``, a list, gets each step's wall seconds appended: from
+    the batch's slicing to its loss read back (which waits for the
+    device), densify and checkpoints not included."""
     compress = cfg.grad_compress
     dev = mesh.device
     if grid is None:
@@ -1721,8 +1779,10 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         latest = ckpt.latest_restorable_step()
         if latest is not None:
             _check_resume_policy(ckpt.manifest_extra(latest), cfg)
-            tree, extra = ckpt.restore(latest, state_tree(g, opt, err),
+            like = state_tree(g, opt, err)
+            tree, extra = ckpt.restore(latest, unshaped_like(like),
                                        device=dev)
+            tree = fit_slots(tree, like)
             g, opt = tree[0], tree[1]
             if compress == "int8":
                 err = tree[2]
@@ -1830,6 +1890,7 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         return gs_shard_state(_stack_partitions(outs), mesh)
 
     for i in range(start, steps):
+        t_step = time.perf_counter()
         vi = (i * vb + torch.arange(vb, device=dev)) % V
         vi = vi[v0:v0 + vloc]
         batch = {"gt_tiles": gt_tiles[vi], "mask_tiles": mask_tiles[vi],
@@ -1839,6 +1900,8 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         else:
             g, opt, err, loss, ov = get_step()(g, opt, err, batch)
         losses.append(float(loss))
+        if step_times is not None:
+            step_times.append(time.perf_counter() - t_step)
         if sched is not None:
             # a positive (all-reduced) counter grows the caps for the next
             # steps: a one-step blip, never a persistent truncation

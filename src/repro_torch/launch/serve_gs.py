@@ -12,7 +12,8 @@ requests through the bounded-queue batcher (core/serving.py): each pass
 submits a mixed near/far orbital rig (near views exercise rung 0, far
 views the pruned rungs) and flushes.  Exit is nonzero if a repeat pass
 fails to hit the cache.  ``--device`` (default ``cuda``) picks the card or
-the CPU.
+the CPU.  The telemetry JSON also holds the restore's seconds and the
+forward kernel's launches in this process.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.core.cameras import concat, orbital_rig
 from repro_torch.core.serving import GSRenderServer
+from repro_torch.kernels import rasterize
 
 
 def main(argv=None) -> int:
@@ -54,9 +56,13 @@ def main(argv=None) -> int:
                     help="device to serve on (cuda, or cpu)")
     args = ap.parse_args(argv)
 
+    t0 = time.perf_counter()
     server, extra = GSRenderServer.from_checkpoint(
         args.ckpt_dir, device=args.device, impl=args.impl,
         max_batch=args.max_batch, cache_entries=args.cache_entries)
+    if server.device.type == "cuda":
+        torch.cuda.synchronize(server.device)
+    restore_s = time.perf_counter() - t0
     meta = extra.get("scene", {})
     g0 = server.ladder[0]
     n_dev = torch.cuda.device_count() if server.device.type == "cuda" else 1
@@ -65,7 +71,8 @@ def main(argv=None) -> int:
           f"grid={server.grid.width}x{server.grid.height} "
           f"ladder K={server.schedule.k_tiers} "
           f"lod rungs={[int(r.active.sum()) for r in server.ladder]} "
-          f"dists={tuple(round(d, 3) for d in server.lod_dists)}")
+          f"dists={tuple(round(d, 3) for d in server.lod_dists)} "
+          f"restore={restore_s:.3f}s")
 
     # mixed near/far rig around the checkpointed scene frame: near views
     # stay on rung 0, far views select the pruned rungs
@@ -100,7 +107,8 @@ def main(argv=None) -> int:
     if args.telemetry_json:
         with open(args.telemetry_json, "w") as f:
             json.dump({"telemetry": tel, "passes": passes,
-                       "scene": meta}, f, indent=1)
+                       "scene": meta, "restore_s": restore_s,
+                       "kernel_launches": rasterize.LAUNCHES}, f, indent=1)
         print(f"[serve-gs] telemetry -> {args.telemetry_json}")
     if args.passes >= 2 and passes[-1]["hits"] < passes[-1]["requests"]:
         raise SystemExit(

@@ -48,13 +48,29 @@ no init probe) under ``--densify-cap``, commits a delta checkpoint to
 ``<ckpt>/timeseries``, and has its successor's ingest prepared on a
 worker thread (``pipeline.TimestepPrefetcher``) while it trains; a
 restart resumes at the last committed timestep.
+
+Under ``torchrun`` every rank joins over ``env://`` (its card
+``cuda:LOCAL_RANK``), builds the whole scene, and trains its block of
+every partition; rank 0 alone merges, renders, prints and writes.  The
+batched capacity is rounded up to a multiple of the "part" size, but
+densify fills no slot past the unrounded one, so the run trains the same
+splats on any mesh, and a checkpoint or chain written on one mesh resumes
+on another (``distributed.fit_slots``).  Rank 0's last line is the run's
+record, ``[train-gs] record {...}`` (``[train-gs-ts]`` for
+``--timeseries``): one JSON object with the losses, each rank's ingest
+seconds, median step ms, device- and host-memory peaks and kernel
+launches, rank 0's merge + render + write seconds, PSNR / SSIM and the
+checkpoints' bytes.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
+import resource
+import statistics
 import sys
 import time
 import types
@@ -77,11 +93,12 @@ from repro_torch.core.tiling import TileGrid
 from repro_torch.core.train import (GSTrainCfg, _check_resume_policy,
                                     init_opt)
 from repro_torch.data.tokens import SyntheticTokens
+from repro_torch.kernels import rasterize
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import (TrainCfg, init_opt_state, init_params,
                                 make_train_step)
 from repro_torch.runtime.checkpoint import (CheckpointManager, quantize_cold,
-                                            tree_map)
+                                            tree_map, unshaped_like)
 from repro_torch.runtime.ft import Heartbeat, retry_step
 
 
@@ -192,10 +209,13 @@ def run_gs(args):
     n_views = args.views or get_gs_dataset(
         args.dataset, "full" if args.full else "cpu").n_views
     mesh, p, v = _mesh(args, cfg, n_views, world)
+    t0 = time.perf_counter()
     sc = gs_scene(args, cfg, p, dev)
+    _sync(dev)
+    ingest_s = time.perf_counter() - t0
     parts, points, colors, extent = sc.parts, sc.points, sc.colors, sc.extent
     center, radius, grid, cams = sc.center, sc.radius, sc.grid, sc.cams
-    g, gts, masks = sc.g, sc.gts, sc.masks
+    g, gts, masks, live_cap = sc.g, sc.gts, sc.masks, sc.live_cap
     del sc
 
     kt = cfg.resolved_k_tiers()
@@ -222,17 +242,16 @@ def run_gs(args):
             "(schedule restored, no re-probe)")
     sched = cfg.tier_schedule()
     generator = torch.Generator(device=dev).manual_seed(args.seed)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    step_s = []
     t0 = time.perf_counter()
     g1, o1, losses = dist_mod.fit_partitions(
         g, cams, gts, masks, cfg, mesh=mesh, steps=args.steps,
         extent=extent, generator=generator,
         densify_every=args.densify_every, densify_from=args.densify_from,
         grid=grid, schedule=sched, ckpt=ckpt, ckpt_every=args.ckpt_every,
-        rebalance_every=args.rebalance_every, log_every=args.log_every)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        rebalance_every=args.rebalance_every, log_every=args.log_every,
+        densify_cap=live_cap, step_times=step_s)
+    _sync(dev)
     train_s = time.perf_counter() - t0
     del gts, masks
     done = max(args.steps, latest or 0)
@@ -246,22 +265,103 @@ def run_gs(args):
     if sched is not None:
         say(f"[train-gs] schedule: {sched}")
 
+    ranks = _rank_stats(dev, ingest_s=ingest_s, train_s=train_s,
+                        step_ms=_median_ms(step_s), steps=len(step_s))
     g_all = dist_mod.gather_partitions(g1, mesh)
     del g1, o1
     if rank0:
-        _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
-                       center, radius, extent, n_views, done, dev)
+        t0 = time.perf_counter()
+        out = _write_outputs(args, g_all, parts, points, colors, cams, grid,
+                             cfg, center, radius, extent, n_views, done, dev)
+        _sync(dev)
+        out.update(write_s=time.perf_counter() - t0, world=world,
+                   mesh=[p, v], points=len(points), slots=list(g.active.shape),
+                   losses=losses, ranks=ranks,
+                   ckpt_bytes=_dir_bytes(os.path.join(
+                       args.ckpt_dir, f"step_{done:09d}")))
+        _print_record("[train-gs]", out, dev)
     torch.distributed.barrier()
     return 0
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _median_ms(seconds):
+    return statistics.median(seconds) * 1e3 if seconds else None
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _rank_stats(dev, **stats):
+    """This rank's ``stats`` with its device-memory and host-memory (resident
+    set) peaks and both kernels' launches, all-gathered -> every rank's, in
+    rank order."""
+    stats["rank"] = torch.distributed.get_rank()
+    stats["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else None)
+    # ru_maxrss is in KiB on Linux
+    stats["host_peak_gib"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    stats["launches"] = [rasterize.LAUNCHES, rasterize.BWD_LAUNCHES]
+    out = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(out, stats)
+    return out
+
+
+def _print_record(tag, rec, dev):
+    """Rank 0: the run's record as one JSON line (``<tag> record {...}``),
+    rank 0's device-memory peak after its merge included."""
+    rec["peak_gib_rank0"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                             if dev.type == "cuda" else None)
+    rec["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu")
+    print(f"{tag} record {json.dumps(rec)}", flush=True)
+
+
+def read_record(text: str, tag: str) -> dict:
+    """The record ``_print_record`` printed into ``text`` (a run's standard
+    output) -> the object; not exactly one record line raises ValueError."""
+    head = f"{tag} record "
+    lines = [ln for ln in text.splitlines() if ln.startswith(head)]
+    if len(lines) != 1:
+        raise ValueError(f"{len(lines)} '{head}' lines in the run's output")
+    return json.loads(lines[0][len(head):])
+
+
+def record_lines(rec: dict) -> list:
+    """A record's numbers as lines of text: one a per-rank key (every
+    rank's value, in rank order), then rank 0's merge and outputs, then the
+    losses."""
+    ranks = rec["ranks"]
+    lines = [f"per rank {k}: {[r[k] for r in ranks]}"
+             for k in ranks[0] if k != "rank"]
+    ckpt = (f"checkpoint bytes {rec['ckpt_bytes']}" if "ckpt_bytes" in rec
+            else f"chain bytes {rec['chain_bytes']}")
+    lines.append(
+        f"world {rec['world']}, mesh {rec['mesh']}; rank 0 merge + render + "
+        f"write {rec['write_s']:.3f} s, peak after it {rec['peak_gib_rank0']}"
+        f" GiB; merged PSNR {rec['psnr']:.4f} SSIM {rec['ssim']:.5f}, "
+        f"{rec['live']} live splats, {rec['merged_bytes']} bytes; {ckpt}")
+    lines.append(f"losses {rec['losses']}")
+    return lines
 
 
 def series_frame(args, cfg: GSTrainCfg, n_part: int, dev):
     """The frame a run keeps fixed, from its flags and the t = 0 scene:
     the dataset, the view count, the t = 0 scene (points, colors, extent),
-    its centre and orbit radius, the tile grid, the orbital rig and the
-    capacity of the batched (P, N) layout (the largest partition with its
-    ghost cells, x the dataset's ``capacity_factor`` when densifying,
-    rounded up to a multiple of ``n_part``) -> a namespace of them."""
+    its centre and orbit radius, the tile grid, the orbital rig, the
+    slots a partition may fill (``live_cap``: the largest partition with
+    its ghost cells, x the dataset's ``capacity_factor`` when densifying)
+    and the capacity of the batched (P, N) layout (``live_cap`` rounded up
+    to a multiple of ``n_part``, so "part" can shard it) -> a namespace of
+    them.  Densify is held to ``live_cap``: the padding past it is the
+    mesh's, and a run fills the same slots on any number of ranks."""
     ds = get_gs_dataset(args.dataset, "full" if args.full else "cpu")
     n_views = args.views or ds.n_views
     scene = build_scene(ds, args.seed)
@@ -276,11 +376,12 @@ def series_frame(args, cfg: GSTrainCfg, n_part: int, dev):
     parts, _ = partition_points(points, colors, args.parts,
                                 ghost_width=ghost_w)
     base = max(len(pd.points) for pd in parts)
-    cap = int(base * ds.capacity_factor) if args.densify_every else base
-    cap = -(-cap // n_part) * n_part          # "part"-shardable capacity
+    live_cap = int(base * ds.capacity_factor) if args.densify_every \
+        else base
+    cap = -(-live_cap // n_part) * n_part     # "part"-shardable capacity
     return types.SimpleNamespace(ds=ds, n_views=n_views, scene=scene,
                                  center=center, radius=radius, grid=grid,
-                                 cams=cams, capacity=cap)
+                                 cams=cams, capacity=cap, live_cap=live_cap)
 
 
 def _prep(args, cfg: GSTrainCfg, fr, t_idx: int, dev):
@@ -308,17 +409,18 @@ def gs_scene(args, cfg: GSTrainCfg, n_part: int, dev):
     return types.SimpleNamespace(
         parts=td.parts, points=td.points, colors=td.colors,
         extent=td.extent, center=fr.center, radius=fr.radius, grid=fr.grid,
-        cams=fr.cams, g=td.g0, gts=td.gts, masks=td.masks)
+        cams=fr.cams, g=td.g0, gts=td.gts, masks=td.masks,
+        live_cap=fr.live_cap)
 
 
 def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
                    center, radius, extent, n_views, done, dev, *,
                    tag="[train-gs]", series=None):
     """Rank 0: per-partition checkpoints, merge, render, metrics, the merged
-    checkpoint and the final render.  ``series`` ({"timestep", "t"} of a
-    timeseries run's final timestep) labels the metrics and rides the
-    checkpoints' extras: the timestep in the partitions', both in the
-    merged one's."""
+    checkpoint and the final render -> {"psnr", "ssim", "live",
+    "merged_bytes"}.  ``series`` ({"timestep", "t"} of a timeseries run's
+    final timestep) labels the metrics and rides the checkpoints' extras:
+    the timestep in the partitions', both in the merged one's."""
     part_list = [type(g_all)(*(f[i] for f in g_all))
                  for i in range(args.parts)]
     pckpt = CheckpointManager(os.path.join(args.ckpt_dir, "partitions"),
@@ -358,11 +460,13 @@ def _write_outputs(args, g_all, parts, points, colors, cams, grid, cfg,
         merged_extra["quant"] = quant_meta
         print(f"{tag} merged checkpoint cold attributes quantized "
               f"(int8, fields={list(quant_meta['fields'])})", flush=True)
-    mckpt.save(done, merged_save, extra=merged_extra)
+    merged_dir = mckpt.save(done, merged_save, extra=merged_extra)
     np.save(os.path.join(args.ckpt_dir, "render_final.npy"),
             renders.cpu().numpy())
     print(f"{tag} merged checkpoint (step {done}) + final render "
           f"saved under {args.ckpt_dir}", flush=True)
+    return {"psnr": ps, "ssim": ss, "live": int(merged.active.sum()),
+            "merged_bytes": _dir_bytes(merged_dir)}
 
 
 def run_gs_timeseries(args):
@@ -415,23 +519,42 @@ def run_gs_timeseries(args):
         say(f"[train-gs-ts] restarting at timestep {t_start} "
             f"(chain committed through step {latest})")
 
-    def like(td):
-        return (td.g0, init_opt(td.g0))
+    def restore(step, td, device):
+        # the chain's (g, opt) at ``step``, its slots fitted to this mesh's
+        like = (td.g0, init_opt(td.g0))
+        tree, extra = tck.restore_delta(step, unshaped_like(like),
+                                        device=device)
+        return dist_mod.fit_slots(tree, like), extra
+
+    densify_cap = fr.live_cap if args.densify_cap is None \
+        else min(args.densify_cap, fr.live_cap)
+    # per timestep: the ingest's seconds in the worker, the main thread's
+    # wait for it, the median step, the losses
+    prep_s, wait_s, step_ms, loss_log = {}, [], [], []
+
+    def prep(t_idx):
+        t0 = time.perf_counter()
+        td = _prep(args, cfg, fr, t_idx, dev)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        prep_s[t_idx] = time.perf_counter() - t0
+        return td
 
     warm = None           # (host state tree, extra, global step)
     td = g_all = None
     with TimestepPrefetcher(dev) as pf:
         if t_start < T:
-            pf.submit(_prep, args, cfg, fr, t_start, dev)
+            pf.submit(prep, t_start)
         for t in range(t_start, T):
+            t0 = time.perf_counter()
             td = pf.get()
+            wait_s.append(time.perf_counter() - t0)
             if t + 1 < T:
                 # streaming ingest: t + 1's prep overlaps t's training
-                pf.submit(_prep, args, cfg, fr, t + 1, dev)
+                pf.submit(prep, t + 1)
             if warm is None and t > 0:
                 # the restart: the warm seed from the committed delta chain
-                warm = (*tck.restore_delta(t * S, like(td), device="cpu"),
-                        t * S)
+                warm = (*restore(t * S, td, "cpu"), t * S)
             if t > 0:
                 src = warm[1].get("timestep", t - 1)
                 say(f"[train-gs-ts] timestep {t}: warm-start from "
@@ -447,8 +570,8 @@ def run_gs_timeseries(args):
             # it over the densify events before the warm step, so the split
             # noise is a continuous run's
             generator = torch.Generator(device=dev).manual_seed(args.seed)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            _sync(dev)
+            step_s = []
             t0 = time.perf_counter()
             g1, o1, losses = dist_mod.fit_partitions(
                 td.g0, fr.cams, td.gts, td.masks, cfg, mesh=mesh,
@@ -460,10 +583,11 @@ def run_gs_timeseries(args):
                 schedule=sched, exchange_schedule=ex,
                 rebalance_every=args.rebalance_every,
                 log_every=args.log_every, warm_start=warm,
-                densify_cap=args.densify_cap)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                densify_cap=densify_cap, step_times=step_s)
+            _sync(dev)
             dt_s = time.perf_counter() - t0
+            step_ms.append(_median_ms(step_s))
+            loss_log.append(losses)
             # commit the timestep (every rank gathers; rank 0 writes)
             g_all, o_all = dist_mod.gather_partitions((g1, o1), mesh)
             del g1, o1
@@ -490,15 +614,27 @@ def run_gs_timeseries(args):
     if g_all is None:
         # the chain is complete: the final timestep for the merge below
         td = _prep(args, cfg, fr, T - 1, dev)
-        (g_all, _), _ = tck.restore_delta(T * S, like(td), device=dev)
+        (g_all, _), _ = restore(T * S, td, dev)
         say(f"[train-gs-ts] chain already complete at timestep {T - 1}; "
             "skipping to merge")
     td.gts = td.masks = None          # the merge renders its own
+    ranks = _rank_stats(dev, prep_s=[prep_s.get(t) for t in range(T)],
+                        wait_s=wait_s, step_ms=step_ms)
     if rank0:
-        _write_outputs(args, g_all, td.parts, td.points, td.colors, fr.cams,
-                       fr.grid, cfg, fr.center, fr.radius, td.extent,
-                       fr.n_views, T * S, dev, tag="[train-gs-ts]",
-                       series={"timestep": T - 1, "t": float(td.t)})
+        t0 = time.perf_counter()
+        out = _write_outputs(args, g_all, td.parts, td.points, td.colors,
+                             fr.cams, fr.grid, cfg, fr.center, fr.radius,
+                             td.extent, fr.n_views, T * S, dev,
+                             tag="[train-gs-ts]",
+                             series={"timestep": T - 1, "t": float(td.t)})
+        _sync(dev)
+        chain = os.path.join(args.ckpt_dir, "timeseries")
+        out.update(write_s=time.perf_counter() - t0, world=world,
+                   mesh=[p, v], t_start=t_start, losses=loss_log,
+                   ranks=ranks, chain_bytes={
+                       s: _dir_bytes(os.path.join(chain, f"step_{s:09d}"))
+                       for s in tck.all_steps()})
+        _print_record("[train-gs-ts]", out, dev)
     torch.distributed.barrier()
     return 0
 

@@ -19,6 +19,9 @@ slots and saturated splats (opacity 3, so opacity * g exceeds 0.99 near
 the centre and alpha clamps).
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 
@@ -817,6 +820,238 @@ def test_cuda_part_mesh_exchange(cuda, tmp_path):
     for tag in ("exchange", "rebalanced"):
         np.testing.assert_allclose(losses[tag], losses["gather"], rtol=1e-3,
                                    err_msg=tag)
+
+
+# ---------------------------------------------------------------------------
+# The training CLI under torchrun: one process per card, NCCL
+# ---------------------------------------------------------------------------
+
+#: kingsnake at full size, as the train-CLI phase of chip_smoke.py cuts it
+#: (2 partitions, 1024x1024, 16 views), two views a step (the 2x2 mesh's
+#: "view" axis needs them), densify after steps 4 and 8
+KINGSNAKE_CLI = ["--gs", "--dataset", "kingsnake", "--full", "--parts", "2",
+                 "--resolution", "1024", "--views", "16", "--view-batch", "2",
+                 "--densify-every", "4", "--densify-from", "0", "--device",
+                 "cuda"]
+CLI_STEPS = 8
+#: the card gate of the mesh tests (the gradient sums run in another order
+#: and the gather transpose uses atomics): losses at 1e-3 relative, each
+#: trained field within 2 * steps * its learning rate, 99% of its
+#: components within 1e-4
+CARD_GATES = dict(field_tol=1e-4, field_share=0.99)
+
+
+def _smi():
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _torchrun_cli(nproc, argv, timeout, module="repro_torch.launch.train"):
+    """``torchrun --standalone --nproc-per-node nproc -m module argv`` (the
+    CLI as a user launches it, one process per card) -> its output; a
+    non-zero exit raises."""
+    from _torch_dist_cli import Torchrun
+
+    out, _ = Torchrun(argv, nproc=nproc, module=module,
+                      timeout=timeout).wait()
+    return out
+
+
+def _print_record(label, rec):
+    """The per-rank numbers of a CLI record, for ``-s``."""
+    from repro_torch.launch.train import record_lines
+
+    print("\n".join(f"{label} {ln}" for ln in record_lines(rec)))
+
+
+def test_cuda_torchrun_cli_meshes_match_world_one(cuda, tmp_path):
+    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --gs`` on
+    the full-size kingsnake scene (2 partitions of 2.88M slots, 1024x1024,
+    16 views, two a step, 8 steps, densify after steps 4 and 8), one
+    process per card over NCCL on ``--mesh 4x1`` and ``--mesh 2x2``, each
+    rank joining through ``env://``; against the same CLI under ``torchrun
+    --nproc-per-node 1`` (world 1, one card).  Every rank launches both
+    kernels; the losses agree within 1e-3 relative; the final global
+    checkpoint and the merged one hold the same live splats and owners,
+    each trained field within 2 * steps * its learning rate and 99% of its
+    components within 1e-4 (``test_cuda_fit_partitions_nccl_2x2_matches_
+    world_one``'s gates).  ``-s`` prints the cards and each run's per-rank
+    ingest s, median step ms, peak GiB and launches, rank 0's merge +
+    render + write s, PSNR / SSIM and checkpoint bytes."""
+    from _torch_dist_cli import check_merged, check_trees, global_tree
+    from repro_torch.launch.train import read_record as record
+    from repro_torch.core.train import GSTrainCfg, group_lrs
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (torchrun --nproc-per-node 4)")
+    rasterize.build()        # once, before the ranks load it
+    print(_smi())
+    recs = {}
+    for tag, nproc, mesh in (("one", 1, "1x1"), ("4x1", 4, "4x1"),
+                             ("2x2", 4, "2x2")):
+        argv = KINGSNAKE_CLI + ["--steps", str(CLI_STEPS), "--mesh", mesh,
+                                "--ckpt-dir", str(tmp_path / tag)]
+        out = _torchrun_cli(nproc, argv, timeout=600)
+        assert f"({nproc} ranks, nccl on cuda)" in out, out[-3000:]
+        recs[tag] = rec = record(out, "[train-gs]")
+        _print_record(f"kingsnake CLI {tag}", rec)
+        print(f"kingsnake CLI {tag} losses {rec['losses']}")
+        assert len(rec["losses"]) == CLI_STEPS
+        assert np.isfinite(rec["losses"]).all()
+        for r in rec["ranks"]:
+            assert min(r["launches"]) >= CLI_STEPS, (tag, r)
+    want = recs["one"]
+    with open(tmp_path / "one" / "merged" / f"step_{CLI_STEPS:09d}"
+              / "manifest.json") as f:
+        extent = json.load(f)["extra"]["scene"]["extent"]
+    lrs = group_lrs(GSTrainCfg(), extent)
+    base = global_tree(str(tmp_path / "one"), CLI_STEPS)
+    for tag in ("4x1", "2x2"):
+        got = recs[tag]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3,
+                                   atol=0, err_msg=tag)
+        assert got["live"] == want["live"], tag
+        tree = global_tree(str(tmp_path / tag), CLI_STEPS)
+        n = base["means"].shape[1]
+        dev = {k: np.abs(tree[k][:, :n] - base[k]) for k in lrs}
+        worst = {k: (d.max(), np.quantile(d, 0.99)) for k, d in dev.items()}
+        print(f"kingsnake CLI {tag} vs world 1, per field (max, 99th "
+              f"percentile) {worst}")
+        check_trees(tree, base, lrs, CLI_STEPS, **CARD_GATES)
+        check_merged(str(tmp_path / tag), str(tmp_path / "one"), CLI_STEPS,
+                     lrs, CLI_STEPS, **CARD_GATES)
+
+
+def test_cuda_torchrun_timeseries_restart(cuda, tmp_path):
+    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --gs
+    --timeseries`` on the full-size kingsnake scene (2 partitions, 16
+    views, 4 steps a timestep, densify after step 4), the ("part",) x4
+    mesh: ``--timesteps 1``, then ``--timesteps 2`` in the same directory.
+    The restart resumes at timestep 1 from the chain rank 0 committed
+    (every rank restores it), leaves timestep 0's commit as it was, and
+    commits timestep 1 as a delta naming its base and the base's digest;
+    every rank launches both kernels in both runs; every loss finite.
+    ``-s`` prints the cards and each run's per-rank prep s in the worker,
+    wait s in ``get()``, median step ms, peak GiB, and the chain's
+    bytes."""
+    import hashlib
+
+    from repro_torch.launch.train import read_record as record
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (torchrun --nproc-per-node 4)")
+    rasterize.build()
+    print(_smi())
+    S = 4
+    root = tmp_path / "ts"
+    argv = KINGSNAKE_CLI + ["--timeseries", "--steps", str(S), "--mesh",
+                            "4x1", "--ckpt-dir", str(root)]
+    head = root / "timeseries" / f"step_{S:09d}"
+
+    def digest():
+        h = hashlib.sha256()
+        for f in sorted(head.iterdir()):
+            h.update(f.name.encode() + f.read_bytes())
+        return h.hexdigest()
+
+    runs = []
+    for T in (1, 2):
+        out = _torchrun_cli(4, argv + ["--timesteps", str(T)], timeout=600)
+        rec = record(out, "[train-gs-ts]")
+        _print_record(f"timeseries --timesteps {T}", rec)
+        print(f"timeseries --timesteps {T} losses {rec['losses']}")
+        for r in rec["ranks"]:
+            assert min(r["launches"]) > 0, (T, r)
+        assert all(np.isfinite(x).all() and len(x) == S
+                   for x in rec["losses"])
+        runs.append((out, rec, digest()))
+    (_, first, d0), (out, restart, d1) = runs
+    assert (first["t_start"], restart["t_start"]) == (0, 1)
+    assert len(first["losses"]) == len(restart["losses"]) == 1
+    assert f"restarting at timestep 1 (chain committed through step {S})" \
+        in out, out[-3000:]
+    assert "timestep 1: warm-start from timestep 0" in out, out[-3000:]
+    assert d0 == d1, "the restart rewrote timestep 0's commit"
+    chain = CheckpointManager(str(root / "timeseries"), keep=0)
+    assert chain.all_steps() == [S, 2 * S]
+    with open(root / "timeseries" / f"step_{2 * S:09d}" / "manifest.json") as f:
+        delta = json.load(f)["delta"]
+    assert delta["base_step"] == S
+    assert delta["base_digest"] == chain._manifest_digest(S)
+
+
+def test_cuda_torchrun_rayleigh_taylor_full(cuda, tmp_path):
+    """The paper's second scene at its full tier on four cards: ``torchrun
+    --nproc-per-node 4 -m repro_torch.launch.train --gs --dataset
+    rayleigh_taylor --full --parts 4 --resolution 1024`` with 16 views and
+    80 steps (densify after steps 70 and 80), as the train-CLI phase of
+    chip_smoke.py cuts kingsnake; the ("part",) x4 mesh, the all-gather
+    tables.  Then ``python -m repro_torch.launch.serve_gs`` of its merged
+    checkpoint on one card, 2 views, two passes.  Gates: every rank
+    launches both kernels on every step; the losses finite; PSNR / SSIM
+    finite; the serve exits 0 with the repeat pass all cache hits and the
+    forward kernel launched.  (Not gated: that the loss falls.  On one
+    card and on four this run's mean over a pass of the 16 views went
+    0.0222, 0.0354, 0.0278, 0.0274, 0.0281: each view's loss jumped after
+    the first pass, while the merged PSNR came out 31.49 dB; ``-s``
+    prints each pass's mean.)
+    ``-s`` prints the cards, the scene's point count, and per rank the
+    ingest s, median step ms, peak GiB, rank 0's merge + render + write
+    s, PSNR / SSIM, the checkpoints' bytes, then the serve's restore s and
+    cold / warm req/s."""
+    import subprocess
+    import sys
+
+    from _torch_dist_cli import SRC
+    from repro_torch.launch.train import read_record as record
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (torchrun --nproc-per-node 4)")
+    rasterize.build()
+    print(_smi())
+    steps = 80
+    root = tmp_path / "rt"
+    argv = ["--gs", "--dataset", "rayleigh_taylor", "--full", "--parts", "4",
+            "--resolution", "1024", "--views", "16", "--steps", str(steps),
+            "--densify-every", "10", "--densify-from", "60", "--device",
+            "cuda", "--ckpt-dir", str(root)]
+    out = _torchrun_cli(4, argv, timeout=1800)
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("[train-gs]") and " record " not in ln))
+    rec = record(out, "[train-gs]")
+    _print_record("rayleigh_taylor CLI", rec)
+    print(f"rayleigh_taylor CLI losses {rec['losses']}")
+    losses = np.asarray(rec["losses"])
+    assert len(losses) == steps and np.isfinite(losses).all()
+    print(f"rayleigh_taylor CLI mean loss of each pass over the 16 views "
+          f"{losses.reshape(-1, 16).mean(1).round(6).tolist()}")
+    assert rec["world"] == 4 and rec["mesh"] == [4, 1]
+    for r in rec["ranks"]:
+        assert min(r["launches"]) >= steps, r
+    assert np.isfinite([rec["psnr"], rec["ssim"]]).all()
+
+    tel = tmp_path / "serve.json"
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="0")
+    serve = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_gs", "--ckpt-dir",
+         str(root), "--views", "2", "--passes", "2", "--device", "cuda",
+         "--telemetry-json", str(tel)], env=env, capture_output=True,
+        text=True, timeout=600)
+    print(serve.stdout)
+    assert serve.returncode == 0, (serve.stdout[-3000:], serve.stderr[-4000:])
+    with open(tel) as f:
+        served = json.load(f)
+    cold, warm = served["passes"]
+    print(f"rayleigh_taylor serve_gs: restore {served['restore_s']:.3f} s, "
+          f"cold {cold['req_per_s']:.3f} req/s ({cold['wall_s']:.3f} s), "
+          f"warm {warm['req_per_s']:.3f} req/s, launches "
+          f"{served['kernel_launches']}")
+    assert warm["hits"] == warm["requests"] == 2
+    assert served["kernel_launches"] > 0
 
 
 #: one SMOKE arch per family: dense, moe, ssm, hybrid, encdec, vlm
