@@ -1,0 +1,7 @@
+"""Forward compositor's share of its roofline, cache-served dispatches."""
+
+from gsbench import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "rasterize_fwd")

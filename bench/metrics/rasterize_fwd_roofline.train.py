@@ -1,0 +1,7 @@
+"""The forward compositor's share of its roofline in the training step."""
+
+from gsbench import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "rasterize_fwd")
