@@ -1,0 +1,7 @@
+"""Device ms a four-card step in ``project`` spans (rank 0)."""
+
+from gsbench import program_spans
+
+
+def read(ctx):
+    return program_spans.device_ms_per(ctx, "project", "train.step")

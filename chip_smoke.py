@@ -581,7 +581,7 @@ def check_passes(server, passes, n_views):
         if (c.rung, c.K) != (r.rung, r.K):
             raise AssertionError("serving decisions changed between passes")
     tel = server.telemetry()
-    if tel["assign"] != 0 or tel["tiles"] != 0:
+    if tel["assign"] != 0:
         raise AssertionError(f"assignment overflow: {tel}")
     if {r.rung for r in cold} != {0, 1}:
         raise AssertionError("the rig must span both LOD rungs")

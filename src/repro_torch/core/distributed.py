@@ -52,6 +52,11 @@ a source: an order-preserving subsequence of the all-gather table, so the
 the budget from a probe (``probe_gs_exchange``) and grows it from the
 step's overflow counters; ``rebalance_partitions`` deals live rows evenly
 over the "part" shards.
+
+Under a profiler (``runtime.spans``) a step records ``train.step`` with
+``train.batch``, ``train.forward`` (``project``, ``train.gather``),
+``train.backward``, ``train.adam``, ``train.readback`` and
+``train.schedule``, and every collective its ``wire_bytes``.
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ from repro_torch.core.train import (GSOptState, GSTrainCfg,
                                     densify_and_prune, group_lrs, init_opt)
 from repro_torch.kernels.ops import rasterize_tiles, rasterize_tiles_tiered
 from repro_torch.optim.compress import compress_grads
+from repro_torch.runtime import spans
 from repro_torch.runtime.checkpoint import (tree_flatten, tree_map,
                                             unshaped_like)
 
@@ -320,10 +326,27 @@ def fit_slots(tree, like):
 # ---------------------------------------------------------------------------
 
 
+# Each collective counts ``wire_bytes``: the bytes this rank receives in
+# it, by the ring algorithms' count (NCCL's bus bytes): an all-gather the
+# other ranks' blocks, a reduce-scatter (n - 1) chunks, an all-reduce
+# 2 (n - 1) / n of the tensor, an all-to-all (n - 1) / n of it, a shift
+# the whole slab.
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count_wire(nbytes: int):
+    if nbytes:                     # a one-rank group moves nothing
+        spans.count("wire_bytes", nbytes)
+
+
 def _all_gather(x, group, dim: int):
     """Plain all-gather of ``x`` over ``group``, concatenated along dim."""
     n = dist.get_world_size(group)
     x0 = x.movedim(dim, 0).contiguous()
+    _count_wire((n - 1) * _nbytes(x0))
     if dist.get_backend(group) == "nccl":
         out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
         dist.all_gather_into_tensor(out, x0, group=group)
@@ -342,6 +365,7 @@ def _reduce_scatter(x, group, dim: int):
     chunk = x0.shape[0] // n
     if dist.get_backend(group) == "nccl":
         out = x0.new_empty((chunk,) + tuple(x0.shape[1:]))
+        _count_wire((n - 1) * _nbytes(out))
         dist.reduce_scatter_tensor(out, x0, op=dist.ReduceOp.SUM,
                                    group=group)
     else:
@@ -367,6 +391,8 @@ class _AllGather(torch.autograd.Function):
 
 def _all_reduce(x, op, group=None):
     """A plain all-reduce of a copy of ``x``."""
+    n = dist.get_world_size(group)
+    _count_wire(2 * (n - 1) * _nbytes(x) // n)
     y = x.clone()
     dist.all_reduce(y, op=op, group=group)
     return y
@@ -403,6 +429,8 @@ def _all_to_all(x, group):
     rank d; chunk s of the result came from rank s."""
     x = x.contiguous()
     out = torch.empty_like(x)
+    n = dist.get_world_size(group)
+    _count_wire((n - 1) * _nbytes(x) // n)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -428,6 +456,7 @@ def _shift(x, group, k: int):
     me = dist.get_group_rank(group, dist.get_rank())
     x = x.contiguous()
     out = torch.empty_like(x)
+    _count_wire(_nbytes(out))
     peer = lambda r: dist.get_global_rank(group, r % n)  # noqa: E731
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, x, peer(me + k), group),
@@ -858,27 +887,29 @@ def make_gs_forward(mesh, grid: TileGrid, *, K: int, impl: str = "auto",
         tabs = cast_tables(wire_tables(splats, gather_mode), dtype_policy)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         ex_ov, edges, demand = zero, None, None
-        if exchange:
-            tabs = [fold(x) for x in tabs]                  # (R, Nl, C)
-            with torch.no_grad():
-                # the overlap from the policy-rounded f32 geometry: the
-                # arithmetic the receiver's assignment runs
-                first = tabs[0].detach().to(torch.float32)
-                if split:
-                    rad = first[..., 2]
-                    val = rad > 0
-                else:
-                    rad = tabs[1][..., 0].to(torch.float32)
-                    val = tabs[1][..., 2] > 0.5
-                hit = _exchange_hits((first[..., 0], first[..., 1], rad, val),
-                                     grid, t0_strip, Tl, sub, n_part)
-                move, ex_ov, edges, demand = _pack_exchange(
-                    hit, part_group, me, budget, tau)
-                del hit, first
-            tabs = [move(x) for x in tabs]
-            gt, mask = subwin(gt, band), subwin(mask, band)
-        else:
-            tabs = [fold(_gather(x, part_group, nax)) for x in tabs]
+        with spans.span("train.gather"):
+            if exchange:
+                tabs = [fold(x) for x in tabs]              # (R, Nl, C)
+                with torch.no_grad():
+                    # the overlap from the policy-rounded f32 geometry: the
+                    # arithmetic the receiver's assignment runs
+                    first = tabs[0].detach().to(torch.float32)
+                    if split:
+                        rad = first[..., 2]
+                        val = rad > 0
+                    else:
+                        rad = tabs[1][..., 0].to(torch.float32)
+                        val = tabs[1][..., 2] > 0.5
+                    hit = _exchange_hits(
+                        (first[..., 0], first[..., 1], rad, val), grid,
+                        t0_strip, Tl, sub, n_part)
+                    move, ex_ov, edges, demand = _pack_exchange(
+                        hit, part_group, me, budget, tau)
+                    del hit, first
+                tabs = [move(x) for x in tabs]
+                gt, mask = subwin(gt, band), subwin(mask, band)
+            else:
+                tabs = [fold(_gather(x, part_group, nax)) for x in tabs]
         if split:
             geo, rest = tabs
             # f32 and differentiable: the kernel rows take the mean from it
@@ -1484,55 +1515,66 @@ def make_gs_train_step(mesh, cfg: GSTrainCfg, grid: TileGrid, extent: float,
                           dtype_policy=cfg.dtype_policy)
     world = dist.get_world_size()
 
-    def grads_of(g: Gaussians, batch):
+    def grads_of(g: Gaussians, batch, err=None):
+        """-> (loss, overflow, gradients, err): spans ``train.forward`` and
+        ``train.backward`` (the gradient, its sum over the replicas and,
+        with ``grad_compress``, its compression)."""
         tr = {k: p.detach().requires_grad_(True)
               for k, p in g.trainable().items()}
+        names = list(tr)
         with torch.enable_grad():
-            loss, overflow = fwd(g.with_trainable(tr), batch["cam"],
-                                 batch["gt_tiles"], batch["mask_tiles"])
-            names = list(tr)
+            with spans.span("train.forward"):
+                loss, overflow = fwd(g.with_trainable(tr), batch["cam"],
+                                     batch["gt_tiles"], batch["mask_tiles"])
             # the replicated loss's cotangent, spread over the world (what
             # shard_map's transpose feeds each device)
             seed = torch.full_like(loss, 1.0 / world)
-            got = torch.autograd.grad(loss, [tr[k] for k in names],
-                                      grad_outputs=seed, allow_unused=True)
-        grads = {k: torch.zeros_like(tr[k]) if gr is None else gr
-                 for k, gr in zip(names, got)}
-        with torch.no_grad():
-            if rep_group is not None:
-                # sum the replicated gaussians' gradients over ("model",
-                # "view") (one flat all-reduce)
-                flat = torch.cat([grads[k].reshape(-1) for k in names])
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=rep_group)
-                off = 0
-                for k in names:
-                    n = grads[k].numel()
-                    grads[k] = flat[off:off + n].view_as(grads[k])
-                    off += n
-        return loss.detach(), overflow, grads
+        with spans.span("train.backward"):
+            with torch.enable_grad():
+                got = torch.autograd.grad(loss, [tr[k] for k in names],
+                                          grad_outputs=seed,
+                                          allow_unused=True)
+            grads = {k: torch.zeros_like(tr[k]) if gr is None else gr
+                     for k, gr in zip(names, got)}
+            with torch.no_grad():
+                if rep_group is not None:
+                    # sum the replicated gaussians' gradients over
+                    # ("model", "view") (one flat all-reduce)
+                    flat = torch.cat([grads[k].reshape(-1) for k in names])
+                    n = dist.get_world_size(rep_group)
+                    _count_wire(2 * (n - 1) * _nbytes(flat) // n)
+                    dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                    group=rep_group)
+                    off = 0
+                    for k in names:
+                        n = grads[k].numel()
+                        grads[k] = flat[off:off + n].view_as(grads[k])
+                        off += n
+                if compress != "none":
+                    grads, err, _ = compress_grads(
+                        {k: v.to(torch.float32) for k, v in grads.items()},
+                        compress, err, group=shard_group)
+        return loss.detach(), overflow, grads, err
 
     @torch.no_grad()
     def update(g: Gaussians, opt: GSOptState, grads):
-        new_tr, new_m, new_v, step_i = adam_update(
-            cfg, lrs, g.trainable(), grads, opt)
-        gnorm = torch.linalg.norm(grads["means"].to(torch.float32), dim=-1)
-        new_opt = GSOptState(
-            m=new_m, v=new_v, step=step_i,
-            grad_accum=opt.grad_accum + gnorm,
-            grad_count=opt.grad_count + (gnorm > 0).to(torch.float32))
-        return g.with_trainable(new_tr), new_opt
+        with spans.span("train.adam"):
+            new_tr, new_m, new_v, step_i = adam_update(
+                cfg, lrs, g.trainable(), grads, opt)
+            gnorm = torch.linalg.norm(grads["means"].to(torch.float32), dim=-1)
+            new_opt = GSOptState(
+                m=new_m, v=new_v, step=step_i,
+                grad_accum=opt.grad_accum + gnorm,
+                grad_count=opt.grad_count + (gnorm > 0).to(torch.float32))
+            return g.with_trainable(new_tr), new_opt
 
     def step(g: Gaussians, opt: GSOptState, batch):
-        loss, overflow, grads = grads_of(g, batch)
+        loss, overflow, grads, _ = grads_of(g, batch)
         out = update(g, opt, grads) + (loss,)
         return out + (overflow,) if return_overflow else out
 
     def step_compressed(g: Gaussians, opt: GSOptState, err, batch):
-        loss, overflow, grads = grads_of(g, batch)
-        with torch.no_grad():
-            grads, err, _ = compress_grads(
-                {k: v.to(torch.float32) for k, v in grads.items()}, compress,
-                err, group=shard_group)
+        loss, overflow, grads, err = grads_of(g, batch, err)
         out = update(g, opt, grads) + (err, loss)
         return out + (overflow,) if return_overflow else out
 
@@ -1890,33 +1932,39 @@ def fit_partitions(g: Gaussians, cams: Camera, gts, masks, cfg: GSTrainCfg,
         return gs_shard_state(_stack_partitions(outs), mesh)
 
     for i in range(start, steps):
-        t_step = time.perf_counter()
-        vi = (i * vb + torch.arange(vb, device=dev)) % V
-        vi = vi[v0:v0 + vloc]
-        batch = {"gt_tiles": gt_tiles[vi], "mask_tiles": mask_tiles[vi],
-                 "cam": select(cams, vi)}
-        if compress == "none":
-            g, opt, loss, ov = get_step()(g, opt, batch)
-        else:
-            g, opt, err, loss, ov = get_step()(g, opt, err, batch)
-        losses.append(float(loss))
-        if step_times is not None:
-            step_times.append(time.perf_counter() - t_step)
-        if sched is not None:
-            # a positive (all-reduced) counter grows the caps for the next
-            # steps: a one-step blip, never a persistent truncation
-            sched.note_overflow(ov["tiles"], m_dev)
-        if assign["impl"] == "sorted" and int(ov["assign"]) > 0:
-            assign["budget"] = grow_tile_budget(
-                assign["budget"] or DEFAULT_TILE_BUDGET, grid.n_tiles)
-        if ex is not None:
-            # a matrix budget grows only its starved edges
-            ex.note_overflow(as_numpy(ov.get("exchange_edges",
-                                             ov["exchange"])), Nl)
-            if "exchange_demand" in ov:
-                dm = as_numpy(ov["exchange_demand"])
-                ex_demand = dm if ex_demand is None \
-                    else np.maximum(ex_demand, dm)
+        with spans.span("train.step", i):
+            t_step = time.perf_counter()
+            with spans.span("train.batch"):
+                vi = (i * vb + torch.arange(vb, device=dev)) % V
+                vi = vi[v0:v0 + vloc]
+                batch = {"gt_tiles": gt_tiles[vi],
+                         "mask_tiles": mask_tiles[vi],
+                         "cam": select(cams, vi)}
+            if compress == "none":
+                g, opt, loss, ov = get_step()(g, opt, batch)
+            else:
+                g, opt, err, loss, ov = get_step()(g, opt, err, batch)
+            with spans.span("train.readback"):
+                losses.append(float(loss))
+            if step_times is not None:
+                step_times.append(time.perf_counter() - t_step)
+            with spans.span("train.schedule"):
+                if sched is not None:
+                    # a positive (all-reduced) counter grows the caps for
+                    # the next steps: a one-step blip, never a persistent
+                    # truncation
+                    sched.note_overflow(ov["tiles"], m_dev)
+                if assign["impl"] == "sorted" and int(ov["assign"]) > 0:
+                    assign["budget"] = grow_tile_budget(
+                        assign["budget"] or DEFAULT_TILE_BUDGET, grid.n_tiles)
+                if ex is not None:
+                    # a matrix budget grows only its starved edges
+                    ex.note_overflow(as_numpy(ov.get("exchange_edges",
+                                                     ov["exchange"])), Nl)
+                    if "exchange_demand" in ov:
+                        dm = as_numpy(ov["exchange_demand"])
+                        ex_demand = dm if ex_demand is None \
+                            else np.maximum(ex_demand, dm)
         if densify_at(i):
             g, opt = densify(g, opt)
             err = zero_err(g, compress)   # rows moved: the residual is stale

@@ -32,7 +32,13 @@ Three serving mechanisms ride on the batcher, as in the reference:
 
 The reference pads each dispatch to a power of two only to bound its jit
 traces; the eager port dispatches the requests as they are, with the same
-results, ``RenderResult`` fields and telemetry.
+results, ``RenderResult`` fields and telemetry (less the reference's
+``"tiles"`` counter, which nothing increments).
+
+Spans (``runtime.spans``, recorded under a profiler): ``serve.submit`` a
+request, ``serve.flush``, ``serve.dispatch`` a batch holding
+``serve.tables`` (``serve.assign`` for its misses), ``serve.render`` and
+``serve.readback``.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from repro_torch.core.tiling import (DEFAULT_ASSIGN_IMPL, POSE_BINS,
                                      TierSchedule, TileGrid,
                                      grow_tile_budget, quantize_pose,
                                      slice_table)
+from repro_torch.runtime import spans
 from repro_torch.runtime.checkpoint import (CheckpointManager,
                                             dequantize_cold, unshaped_like)
 
@@ -268,7 +275,7 @@ class GSRenderServer:
         self._telemetry: Dict[str, int] = {
             "requests": 0, "batches": 0, "hits": 0, "misses": 0,
             "evictions": 0, "cache_overflow": 0, "shed": 0, "rejected": 0,
-            "tiles": 0, "assign": 0,
+            "assign": 0,
         }
 
     # -- checkpoint loading -------------------------------------------------
@@ -340,41 +347,44 @@ class GSRenderServer:
         """Enqueue one camera request -> request id.  Raises QueueFullError
         at the queue cap (counted).  Past ``shed_at`` pending requests the
         request is marked shed: still served, at the ladder's ``shed_rung``
-        K (counted)."""
-        if tuple(cam.view.shape) != (4, 4):
-            raise ValueError("submit takes a single-view Camera; use "
-                             "serve() for a batched rig")
-        if (cam.width, cam.height) != (self.grid.width, self.grid.height):
-            raise ValueError(
-                f"camera {cam.width}x{cam.height} does not match the "
-                f"serving grid {self.grid.width}x{self.grid.height}")
-        cfg = self.cfg
-        if len(self._queue) >= cfg.queue_cap:
-            self._telemetry["rejected"] += 1
-            raise QueueFullError(
-                f"request queue at cap {cfg.queue_cap}; rejection counted "
-                "(telemetry['rejected'])")
-        shed_at = cfg.shed_at if cfg.shed_at is not None \
-            else max(1, cfg.queue_cap // 2)
-        shed = len(self._queue) >= shed_at
-        key, (cview, cfx, cfy) = quantize_pose(
-            cam.view, cam.fx, cam.fy, bins=cfg.pose_bins)
-        f32 = dict(dtype=torch.float32, device=self.device)
-        canon = Camera(torch.from_numpy(cview).to(self.device),
-                       torch.tensor(cfx, **f32), torch.tensor(cfy, **f32),
-                       cam.width, cam.height)
-        rung = select_rung(camera_distance(cview, self.center),
-                           self.lod_dists)
-        k = int(self.schedule.k_tiers[cfg.shed_rung]) if shed \
-            else int(self.schedule.kmax)
-        rid = self._next_rid
-        self._next_rid += 1
-        self._telemetry["requests"] += 1
-        if shed:
-            self._telemetry["shed"] += 1
-        self._queue.append(_Request(rid=rid, cam=canon, key=key, rung=rung,
-                                    k=k, shed=shed, hit=False))
-        return rid
+        K (counted).  Span ``serve.submit``, identified by the request id."""
+        with spans.span("serve.submit") as sp:
+            if tuple(cam.view.shape) != (4, 4):
+                raise ValueError("submit takes a single-view Camera; use "
+                                 "serve() for a batched rig")
+            if (cam.width, cam.height) != (self.grid.width, self.grid.height):
+                raise ValueError(
+                    f"camera {cam.width}x{cam.height} does not match the "
+                    f"serving grid {self.grid.width}x{self.grid.height}")
+            cfg = self.cfg
+            if len(self._queue) >= cfg.queue_cap:
+                self._telemetry["rejected"] += 1
+                raise QueueFullError(
+                    f"request queue at cap {cfg.queue_cap}; rejection counted "
+                    "(telemetry['rejected'])")
+            shed_at = cfg.shed_at if cfg.shed_at is not None \
+                else max(1, cfg.queue_cap // 2)
+            shed = len(self._queue) >= shed_at
+            key, (cview, cfx, cfy) = quantize_pose(
+                cam.view, cam.fx, cam.fy, bins=cfg.pose_bins)
+            f32 = dict(dtype=torch.float32, device=self.device)
+            canon = Camera(torch.from_numpy(cview).to(self.device),
+                           torch.tensor(cfx, **f32), torch.tensor(cfy, **f32),
+                           cam.width, cam.height)
+            rung = select_rung(camera_distance(cview, self.center),
+                               self.lod_dists)
+            k = int(self.schedule.k_tiers[cfg.shed_rung]) if shed \
+                else int(self.schedule.kmax)
+            rid = self._next_rid
+            self._next_rid += 1
+            self._telemetry["requests"] += 1
+            if shed:
+                self._telemetry["shed"] += 1
+            self._queue.append(_Request(rid=rid, cam=canon, key=key,
+                                        rung=rung, k=k, shed=shed,
+                                        hit=False))
+            sp.tag(rid)
+            return rid
 
     # -- cache --------------------------------------------------------------
 
@@ -403,69 +413,84 @@ class GSRenderServer:
 
     def _tables_for(self, reqs: List[_Request], rung: int):
         """Per-request (T, Kmax) tables: cache hits are read back, misses
-        are assigned as one batch and populate the cache."""
-        tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        misses = []
-        for i, r in enumerate(reqs):
-            entry = self._cache_get(r.key, rung)
-            if entry is None:
-                misses.append(i)
-            else:
-                r.hit = True
-                tables[i] = entry
-        if misses:
-            impl, budget = self._assign[rung]
-            cams = stack(reqs[i].cam for i in misses)
-            idx, score, ov = assign_tables(
-                self.ladder[rung], cams, self.grid, self.cfg.K,
-                assign_impl=impl, assign_budget=budget)
-            n_ov = int(ov.sum())
-            if n_ov:
-                # starved sorted-path budget: count it and grow for future
-                # misses (already-cached tables stay as extracted)
-                self._telemetry["assign"] += n_ov
-                if budget is not None:
-                    self._assign[rung] = (
-                        impl, grow_tile_budget(budget, self.grid.n_tiles))
-            for j, i in enumerate(misses):
-                entry = (idx[j], score[j])
-                tables[i] = entry
-                self._cache_put(reqs[i].key, rung, *entry)
-        return [tables[i] for i in range(len(reqs))]
+        are assigned as one batch and populate the cache.  Span
+        ``serve.tables``; the misses' assignment, its overflow read back
+        included, span ``serve.assign``."""
+        with spans.span("serve.tables"):
+            tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+            misses = []
+            for i, r in enumerate(reqs):
+                entry = self._cache_get(r.key, rung)
+                if entry is None:
+                    misses.append(i)
+                else:
+                    r.hit = True
+                    tables[i] = entry
+            if misses:
+                with spans.span("serve.assign"):
+                    impl, budget = self._assign[rung]
+                    cams = stack(reqs[i].cam for i in misses)
+                    idx, score, ov = assign_tables(
+                        self.ladder[rung], cams, self.grid, self.cfg.K,
+                        assign_impl=impl, assign_budget=budget)
+                    n_ov = int(ov.sum())
+                if n_ov:
+                    # starved sorted-path budget: count it and grow for future
+                    # misses (already-cached tables stay as extracted)
+                    self._telemetry["assign"] += n_ov
+                    if budget is not None:
+                        self._assign[rung] = (
+                            impl, grow_tile_budget(budget, self.grid.n_tiles))
+                for j, i in enumerate(misses):
+                    entry = (idx[j], score[j])
+                    tables[i] = entry
+                    self._cache_put(reqs[i].key, rung, *entry)
+            return [tables[i] for i in range(len(reqs))]
 
     def _dispatch(self, reqs: List[_Request]) -> List[RenderResult]:
         """Render one (rung, k)-homogeneous group of <= max_batch requests
-        as a single view-batched dispatch from assignment tables."""
-        cfg = self.cfg
-        rung, k = reqs[0].rung, reqs[0].k
-        tables = self._tables_for(reqs, rung)
-        idx = torch.stack([t[0] for t in tables])
-        score = torch.stack([t[1] for t in tables])
-        idx, score = slice_table(idx, score, k)       # shed rungs: prefix
-        out = render_batch_tables(
-            self.ladder[rung], stack(r.cam for r in reqs), self.grid, idx,
-            score, impl=cfg.impl, bg=cfg.bg, dtype_policy=cfg.dtype_policy)
-        self._telemetry["batches"] += 1
-        rgb = out.rgb.cpu().numpy()
-        cov = out.coverage.cpu().numpy()
-        return [RenderResult(request_id=r.rid, rgb=rgb[i], coverage=cov[i],
-                             rung=rung, K=k, cache_hit=r.hit, shed=r.shed)
-                for i, r in enumerate(reqs)]
+        as a single view-batched dispatch from assignment tables.  Span
+        ``serve.dispatch`` (identified by the request ids), holding
+        ``serve.tables``, ``serve.render`` and ``serve.readback`` (the
+        images' copies to the host, counter ``readback_bytes``)."""
+        with spans.span("serve.dispatch", [r.rid for r in reqs]):
+            cfg = self.cfg
+            rung, k = reqs[0].rung, reqs[0].k
+            tables = self._tables_for(reqs, rung)
+            with spans.span("serve.render"):
+                idx = torch.stack([t[0] for t in tables])
+                score = torch.stack([t[1] for t in tables])
+                idx, score = slice_table(idx, score, k)   # shed rungs: prefix
+                out = render_batch_tables(
+                    self.ladder[rung], stack(r.cam for r in reqs), self.grid,
+                    idx, score, impl=cfg.impl, bg=cfg.bg,
+                    dtype_policy=cfg.dtype_policy)
+            self._telemetry["batches"] += 1
+            with spans.span("serve.readback"):
+                rgb = out.rgb.cpu().numpy()
+                cov = out.coverage.cpu().numpy()
+                spans.count("readback_bytes", rgb.nbytes + cov.nbytes)
+            return [RenderResult(request_id=r.rid, rgb=rgb[i], coverage=cov[i],
+                                 rung=rung, K=k, cache_hit=r.hit, shed=r.shed)
+                    for i, r in enumerate(reqs)]
 
     def flush(self) -> List[RenderResult]:
         """Serve EVERY pending request -> results in submission order.
         Requests group by (rung, k) and each group coalesces into
-        view-batched renders of up to ``max_batch`` views."""
-        reqs, self._queue = self._queue, []
-        groups: Dict[Tuple[int, int], List[_Request]] = {}
-        for r in reqs:
-            groups.setdefault((r.rung, r.k), []).append(r)
-        results: List[RenderResult] = []
-        for key in sorted(groups):
-            rs = groups[key]
-            for s in range(0, len(rs), self.cfg.max_batch):
-                results.extend(self._dispatch(rs[s:s + self.cfg.max_batch]))
-        return sorted(results, key=lambda r: r.request_id)
+        view-batched renders of up to ``max_batch`` views.  Span
+        ``serve.flush``."""
+        with spans.span("serve.flush"):
+            reqs, self._queue = self._queue, []
+            groups: Dict[Tuple[int, int], List[_Request]] = {}
+            for r in reqs:
+                groups.setdefault((r.rung, r.k), []).append(r)
+            results: List[RenderResult] = []
+            for key in sorted(groups):
+                rs = groups[key]
+                for s in range(0, len(rs), self.cfg.max_batch):
+                    results.extend(
+                        self._dispatch(rs[s:s + self.cfg.max_batch]))
+            return sorted(results, key=lambda r: r.request_id)
 
     def serve(self, rig: Camera) -> List[RenderResult]:
         """Submit every view of a batched rig and flush, in waves that
