@@ -6,9 +6,10 @@ Phases (any failure propagates and the script exits nonzero):
 
 1. device    require a CUDA card; print its name and power limit; pin TF32
              off for matmuls and cuDNN.
-2. build     compile both CUDA kernels, ``rasterize_fwd.cu`` and
-             ``rasterize_bwd.cu`` under ``src/repro_torch/kernels/csrc/``,
-             with nvcc (the two builds run in parallel).
+2. build     compile the four CUDA kernels, ``rasterize_fwd.cu``,
+             ``rasterize_bwd.cu``, ``project_fwd.cu`` and ``project_bwd.cu``
+             under ``src/repro_torch/kernels/csrc/``, with nvcc (the builds
+             run in parallel).
 3. kernels   hold each kernel against its plain PyTorch versions on the card
              (tiles 16x16 and 8x128 at K in {1, 16, 64, 256, 300}, and the
              launch layout's edge cases: tiles 1x1, 5x7, 8x16, 32x32 at K
@@ -21,6 +22,19 @@ Phases (any failure propagates and the script exits nonzero):
              launches ``rasterize_bwd`` once.  Then each kernel's inner
              loop is counted from the built library's SASS (``cuobjdump``)
              for its issue-rate ceiling.
+3b. project  the projection pair against the plain version
+             (``projection.project_ref``) on the card at the main path's
+             shapes, a random cloud of splats in the 1024x1024 rig: 2 x
+             2.88M slots at V = 1 (training) and 4M splats at V = 8
+             (serving).  Gates: every float field within 1e-6 of its
+             magnitude; radius and valid equal wherever the pre-ceil radius
+             and the radius box's edges lie 1e-4 (or 1e-6 of their
+             magnitude, where that is larger) from the value that flips
+             them; the gradients within rtol 1e-5 and 1e-6 of the field's
+             largest of autograd of the plain version, two backward calls
+             equal.  Printed per shape: each kernel's ms (back-to-back
+             launches, and one call) beside its bytes bound and the plain
+             version's ms (forward, and autograd's backward).
 4. serve     the paper's smallest dataset at full size: the 4,000,000-point
              kingsnake isosurface as a merged splat model, served by
              ``GSRenderServer`` at 1024x1024 with 16x16 tiles (K=64,
@@ -251,9 +265,16 @@ wrapper and enqueue included.  ``python3 chip_smoke.py --save-inputs DIR``
 also saves the timed kernels' inputs (the serving dispatch's tile table and
 the train step's tier tables) to ``DIR`` for ``tools/torch_kernel_ab.py``.
 
+Every phase that sets the compositor's launch counters to 0 sets the
+projection's too, and reports all four.  On the card each Gaussian-splat
+path must have launched ``project_fwd``, a training path ``project_bwd``
+at least once a step (and no more often than the forward), a serving path
+no ``project_bwd``; the LM paths launch neither pair.
+
 The second-to-last line is the ``{"kernels": [...]}`` record (each kernel's
-``lm_serve_launches`` and ``lm_train_launches``: its launches in phases 9f
-and 9g); the last line
+``launches``: the sum over the Gaussian-splat paths' counts, timing loops
+and checks left out; ``lm_serve_launches`` and ``lm_train_launches``: its
+launches in phases 9f and 9g); the last line
 is ``{"ok": true, "device": {...}}``.  Phase 5 rehearses on the CPU at a
 small size with ``train_phase("cpu", tier="cpu", resolution=32, tile=8,
 K=16, steps=110, n_views=4)``: one densify event, after the last step (on
@@ -288,7 +309,9 @@ from repro_torch.core import train as train_mod  # noqa: E402
 from repro_torch.core.cameras import Camera, concat, orbital_rig  # noqa: E402
 from repro_torch.core.cameras import select, stack  # noqa: E402
 from repro_torch.core.gaussians import from_points  # noqa: E402
-from repro_torch.core.projection import project  # noqa: E402
+from repro_torch.core import projection as proj_mod  # noqa: E402
+from repro_torch.core.projection import Splats2D, project  # noqa: E402
+from repro_torch.core.gaussians import Gaussians  # noqa: E402
 from repro_torch.core.masking import gs_loss  # noqa: E402
 from repro_torch.core.dtypes import cast_tables  # noqa: E402
 from repro_torch.core.pipeline import PipelineCfg  # noqa: E402
@@ -311,6 +334,7 @@ from repro_torch.core.tiling import tile_origins, untile_image  # noqa: E402
 from repro_torch.data.isosurface import point_cloud_for  # noqa: E402
 from repro_torch import as_numpy  # noqa: E402
 from repro_torch.kernels import ops, rasterize, ref  # noqa: E402
+from repro_torch.kernels import project as project_kernels  # noqa: E402
 from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core.merge import merge_partitions  # noqa: E402
 from repro_torch.launch import serve_gs  # noqa: E402
@@ -330,6 +354,7 @@ from repro_torch.models import make_train_step  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cost_analysis import KERNEL_OPS, analyze  # noqa: E402
+from repro_torch.launch.cost_analysis import project_costs  # noqa: E402
 from repro_torch.launch.profile_cell import device_profile  # noqa: E402
 from repro_torch.models import opt_state_specs, param_specs  # noqa: E402
 
@@ -370,6 +395,49 @@ def log(msg):
 def sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+#: the keys of ``launch_counts``: the compositor's pair, then the projection's
+LAUNCH_KEYS = ("fwd", "bwd", "project_fwd", "project_bwd")
+
+
+def zero_launches():
+    """Set every kernel's launch counter to 0."""
+    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    project_kernels.PROJECT_LAUNCHES = project_kernels.PROJECT_BWD_LAUNCHES = 0
+
+
+def launch_counts():
+    """Every kernel's launch counter: the compositor's as "fwd" / "bwd",
+    the projection's as "project_fwd" / "project_bwd"."""
+    return dict(zip(LAUNCH_KEYS, (rasterize.LAUNCHES, rasterize.BWD_LAUNCHES,
+                                  project_kernels.PROJECT_LAUNCHES,
+                                  project_kernels.PROJECT_BWD_LAUNCHES)))
+
+
+def set_launches(counts):
+    """Put back the counters ``launch_counts`` read (a check's calls left
+    out of a phase's count)."""
+    rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts["fwd"], counts["bwd"]
+    project_kernels.PROJECT_LAUNCHES = counts["project_fwd"]
+    project_kernels.PROJECT_BWD_LAUNCHES = counts["project_bwd"]
+
+
+def launches_since(counts):
+    """Every kernel's launches since ``launch_counts`` read ``counts``."""
+    return {k: v - counts[k] for k, v in launch_counts().items()}
+
+
+def check_projected(label, launches, steps=0):
+    """Gate, for a Gaussian-splat path on the card: the projection pair ran
+    -- the forward launched, and the backward once or more for each of the
+    ``steps`` training steps and never more often than the forward (with
+    ``steps`` 0, a path that trains nothing: no backward)."""
+    fwd, bwd = launches["project_fwd"], launches["project_bwd"]
+    ok = fwd >= bwd >= steps > 0 if steps else fwd > 0 == bwd
+    if not ok:
+        raise AssertionError(f"{label}: projection launches fwd {fwd} bwd "
+                             f"{bwd} over {steps} training steps")
 
 
 def tile_inputs(rng, T, K, th, tw, device, dead_frac=0.2, sat_frac=0.2):
@@ -491,6 +559,161 @@ def bwd_kernel_phase(device):
     return worst
 
 
+#: the projection phase's shapes: (label, splats N, views V)
+PROJECT_SHAPES = [("train", 2 * 2_880_000, 1), ("serve", 4_000_000, 8)]
+PROJECT_TRAINED = ("means", "log_scales", "quats")
+PROJECT_GRAD_RTOL = 1e-5
+PROJECT_GRAD_ATOL = 1e-6
+PROJECT_MARGIN = 1e-4
+PROJECT_REL_MARGIN = 1e-6
+
+
+def project_scene(rng, n, device):
+    """n random splats in the unit cube, each with its own rotation and
+    anisotropic scales (0.5-4 thousandths), 5% inactive."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return Gaussians(
+        means=torch.tensor(rng.uniform(0, 1, (n, 3)), **f32),
+        log_scales=torch.tensor(np.log(rng.uniform(5e-4, 4e-3, (n, 3))), **f32),
+        quats=torch.tensor(rng.normal(size=(n, 4)), **f32),
+        opacity_logit=torch.tensor(rng.normal(0, 2, n), **f32),
+        colors=torch.tensor(rng.normal(size=(n, 3)), **f32),
+        active=torch.tensor(rng.uniform(size=n) > 0.05, device=device),
+        owner=torch.zeros(n, dtype=torch.int32, device=device),
+    )
+
+
+def project_flips(s, cam, near=0.05):
+    """Bool (V, N): where one rounding could move radius or valid -- the
+    pre-ceil radius, an edge of the radius box against the image or z
+    within PROJECT_MARGIN, or PROJECT_REL_MARGIN of its magnitude where
+    that is larger, of the value that flips it (from the plain version's
+    fields)."""
+    a, b, c = s.cov2d.unbind(-1)
+    mid = 0.5 * (a + c)
+    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - (a * c - b * b), min=1e-9))
+    pre = 3.0 * torch.sqrt(torch.clamp(lam1, min=1e-9))
+    u, v = s.mean2d.unbind(-1)
+    r = s.radius
+    edges = torch.stack([u + r, u - r - cam.width, v + r, v - r - cam.height], -1)
+    pixels = torch.maximum(u.abs(), v.abs())
+
+    def margin(x):
+        return torch.clamp(PROJECT_REL_MARGIN * x.abs(), min=PROJECT_MARGIN)
+
+    return (
+        ((pre - torch.round(pre)).abs() <= margin(pre))
+        | (edges.abs() <= margin(pixels)[..., None]).any(-1)
+        | ((s.depth - near).abs() <= PROJECT_MARGIN)
+    )
+
+
+def project_check(g, cam, rig, label):
+    """The kernels against the plain version on the card: every float field
+    (max error over its magnitude), radius and valid outside the margin,
+    and each gradient's gate (<= 1) against autograd of the plain version
+    -> (worst field error, {field: gate}, cotangents)."""
+    with torch.no_grad():
+        got = project(g, cam)
+        want = proj_mod.project_ref(g, cam)
+    worst = 0.0
+    for name in Splats2D._fields:
+        if name not in ("radius", "valid"):
+            o, w = getattr(got, name), getattr(want, name)
+            scale = max(1.0, w.abs().max().item())
+            worst = max(worst, ((o - w).abs() / (scale + w.abs())).max().item())
+    flips = project_flips(want, rig)
+    differ = (got.radius != want.radius) | (got.valid != want.valid)
+    n_held = int((differ & ~flips).sum())
+    log(
+        f"project {label}: fields max err {worst:.3e} of magnitude; radius/valid "
+        f"differ at {int(differ.sum())} splat-views ({int(flips.sum())} within "
+        f"the margin), {n_held} outside it; valid {int(want.valid.sum())}"
+    )
+    if not (worst <= 1e-6 and n_held == 0):
+        raise AssertionError(f"project {label}: err {worst}, {n_held} flips held")
+    cot = [torch.randn(want.depth.shape + t, device=g.means.device)
+           for t in ((2,), (3,), ())]
+
+    def grads(fn):
+        tr = {k: getattr(g, k).clone().requires_grad_(True) for k in PROJECT_TRAINED}
+        s = fn(g._replace(**tr), cam)
+        loss = (s.mean2d * cot[0]).sum() + (s.cov2d * cot[1]).sum()
+        (loss + (s.depth * cot[2]).sum()).backward()
+        return [tr[k].grad for k in PROJECT_TRAINED]
+
+    got_g, again, want_g = grads(project), grads(project), grads(proj_mod.project_ref)
+    gates = {}
+    for name, o, a, w in zip(PROJECT_TRAINED, got_g, again, want_g):
+        if not torch.equal(o, a):
+            raise AssertionError(f"project_bwd {label} {name}: two calls differ")
+        atol = PROJECT_GRAD_ATOL * w.abs().max().item()
+        gate = (o - w).abs() / (atol + PROJECT_GRAD_RTOL * w.abs())
+        gates[name] = gate.max().item()
+    log(f"project_bwd {label}: gate (<= 1) {json.dumps(gates)}")
+    if max(gates.values()) > 1.0:
+        raise AssertionError(f"project_bwd {label}: gate {gates}")
+    return worst, gates, cot
+
+
+def project_phase(device, reps=15, plain_reps=3):
+    """3b: the projection pair at the main path's shapes against the plain
+    version -> {label: timings and gates}."""
+    pk = project_kernels
+    rng = np.random.default_rng(5)
+    rows = {}
+    for label, n, V in PROJECT_SHAPES:
+        g = project_scene(rng, n, device)
+        rig = orbital_rig(V, (0.5, 0.5, 0.5), 1.6, width=1024, height=1024,
+                          device=device)
+        cam = rig if V > 1 else select(rig, 0)
+        worst, gates, cot = project_check(g, cam, rig, f"{label} (N {n}, V {V})")
+        # times: the kernels alone, and the plain version (autograd's
+        # backward over a kept graph)
+        alpha = torch.sigmoid(g.opacity_logit)
+        cams = (rig.view.contiguous(), rig.fx, rig.fy)
+        args = (g.means, g.log_scales, g.quats, alpha, g.active, *cams)
+        kw = dict(width=1024, height=1024, near=0.05, alpha_min=1.0 / 255.0)
+        gcot = [x.reshape((V, n) + x.shape[1 + (V > 1):]).contiguous() for x in cot]
+        bwd_args = (g.means, g.log_scales, g.quats, *cams, *gcot)
+
+        def plain_fwd():
+            with torch.no_grad():
+                proj_mod.project_ref(g, cam)
+
+        tr = {k: getattr(g, k).clone().requires_grad_(True) for k in PROJECT_TRAINED}
+        s = proj_mod.project_ref(g._replace(**tr), cam)
+        loss = (s.mean2d * cot[0]).sum() + (s.cov2d * cot[1]).sum()
+        loss = loss + (s.depth * cot[2]).sum()
+
+        def plain_bwd():
+            torch.autograd.grad(loss, list(tr.values()), retain_graph=True)
+
+        times = {
+            "fwd": time_against_plain(
+                lambda: pk.project_fwd(*args, **kw), plain_fwd, reps, plain_reps
+            ),
+            "bwd": time_against_plain(
+                lambda: pk.project_bwd(*bwd_args, near=0.05), plain_bwd, reps,
+                plain_reps,
+            ),
+        }
+        del s, loss, tr
+        for part, t in times.items():
+            name = f"project_{part}"
+            t.update(bound(1, *project_costs(name, V, n)))
+            log(
+                f"{name} {label} (N {n}, V {V}): {t['ms']:.4f} ms back to back "
+                f"({t['ms_runs'][0]:.4f} / {t['ms_runs'][1]:.4f}), one call "
+                f"{t['call_ms']:.4f}; bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}); plain {t['plain_ms']:.3f} ms"
+            )
+        rows[label] = dict(times, max_rel_err=worst, grad_gates=gates)
+        del g
+        torch.cuda.empty_cache()
+    return rows
+
+
 def mixed_rig(center, near_r, far_r, n_near, n_far, res, device):
     """Near orbit (LOD rung 0) + far orbit (coarser rung), as the serving
     CLI of the JAX package builds it."""
@@ -543,7 +766,7 @@ def serve_phase(
     sync(device)
     times["lod_ladder_s"] = time.perf_counter() - t0
     passes = []
-    rasterize.LAUNCHES = 0  # count the launches of the two passes only
+    zero_launches()  # count the launches of the two passes only
     for name in ("cold", "warm"):
         t0 = time.perf_counter()
         results = server.serve(rig)
@@ -553,6 +776,7 @@ def serve_phase(
         passes.append(results)
     info = {
         "launches": rasterize.LAUNCHES,
+        "counts": launch_counts(),
         "n_points": int(len(pts)),
         "assign_impl": assign_impl,
         "assign_budget": budget,
@@ -905,7 +1129,7 @@ def recording_fit(records, device):
             events.append((int(g.active.sum()), int(out[0].active.sum())))
             return out
 
-        f0, b0 = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        c0 = launch_counts()
         sync(device)
         t0 = time.perf_counter()
         with patched(train_mod, "densify_and_prune", counted):
@@ -914,8 +1138,7 @@ def recording_fit(records, device):
         rec = {
             "seconds": time.perf_counter() - t0,
             "losses": losses,
-            "fwd": rasterize.LAUNCHES - f0,
-            "bwd": rasterize.BWD_LAUNCHES - b0,
+            **launches_since(c0),
             "probes": sched.probes,
             "overflows": sched.overflows,
             "densify": events,
@@ -970,10 +1193,10 @@ def run_recorded_pipeline(cfg, device):
         ):
             fn = timed(times, name, fn, device)
             stack.enter_context(patched(pipeline_mod, name, fn))
-        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         result = pipeline_mod.run_pipeline(cfg, device=device)
-        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        launches = launch_counts()
         times.append(("run_pipeline_total", time.perf_counter() - t0))
     return result, records, times, launches
 
@@ -995,7 +1218,8 @@ def train_phase(
     kingsnake scene) -> (result, records, launches of the whole run),
     checked: losses finite and falling in each partition, densify events
     that change the live count, the tier telemetry fed every step, and
-    (on the card) bwd launches == fwd launches > 0 in training."""
+    (on the card) bwd launches == fwd launches > 0 in training, and the
+    projection's backward once or more a step."""
     cfg = PipelineCfg(
         dataset=dataset,
         tier=tier,
@@ -1045,6 +1269,8 @@ def train_phase(
             raise AssertionError(f"partition {p}: launches {rec['fwd']} / {rec['bwd']}")
     if not (math.isfinite(result.psnr) and math.isfinite(result.ssim)):
         raise AssertionError(f"merged metrics {result.psnr} {result.ssim}")
+    if torch.device(device).type == "cuda":
+        check_projected("train", launches, steps * len(records))
     log(
         f"merged: {result.n_gaussians} gaussians, PSNR {result.psnr:.4f} dB, SSIM "
         f"{result.ssim:.5f}, grad_sim {result.grad_sim:.5f}, boundary PSNR "
@@ -1310,20 +1536,22 @@ def train_profile_phase(rec, steps=3, top=12):
 def gs_bound_phase(rec, profile):
     """10c: one step of phase 6's 16x16 ``fit_partition`` step on its own
     inputs, on the card under ``cost_analysis.analyze`` -> record; gates:
-    both kernels in ``per_op`` as many times as the launch counters rose,
+    each kernel in ``per_op`` as many times as its launch counter rose,
     and ``bound_s`` <= the device-busy time of a step of phase 6's profile
     (``profile``: ``train_profile_phase``'s rows, busy share, ms a step)."""
     g, cam, grid, _, caps, assign = step_inputs(rec)
     cfg, gt0, mask0 = rec["cfg"], rec["gt0"], rec["mask0"]
     step = train_mod.make_train_step(cfg, grid, rec["extent"], tier_caps=caps, **assign)
     opt = init_opt(g)
-    before = {"rasterize_fwd": rasterize.LAUNCHES, "rasterize_bwd": rasterize.BWD_LAUNCHES}
+    c0 = launch_counts()
     t0 = time.perf_counter()
     hlo = analyze(step, g, opt, cam, gt0, mask0)
     sync(cam.view.device)
     seconds = time.perf_counter() - t0
-    launched = {"rasterize_fwd": rasterize.LAUNCHES - before["rasterize_fwd"],
-                "rasterize_bwd": rasterize.BWD_LAUNCHES - before["rasterize_bwd"]}
+    since = launches_since(c0)
+    launched = {"rasterize_fwd": since["fwd"], "rasterize_bwd": since["bwd"],
+                "project_fwd": since["project_fwd"],
+                "project_bwd": since["project_bwd"]}
     seen = {k: hlo["per_op"].get(k, {}).get("count", 0) for k in launched}
     if seen != launched or 0 in launched.values():
         raise AssertionError(f"kernel launches {launched}, per_op {seen}")
@@ -1435,10 +1663,10 @@ def resume_phase(rec, device, tmp, *, steps=20, every=10):
         equal = trees_equal(saved, (g_a, opt_a))
         caps = TierSchedule.from_state(extra["schedule"]).tier_caps
         del saved, g_a, opt_a
-        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        zero_launches()
         with patched(train_mod, "occupancy_probe", counted_probe):
             _, _, tail = fit(tmp / "ab", steps, cfg.tier_schedule())
-        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        launches = launch_counts()
     shutil.rmtree(tmp)
     gap = np.abs(np.subtract(tail, full[every:])) / np.asarray(full[every:])
     for op, dt, n in io:
@@ -1458,6 +1686,8 @@ def resume_phase(rec, device, tmp, *, steps=20, every=10):
     on_card = torch.device(device).type == "cuda"
     if on_card and not launches["bwd"] == launches["fwd"] >= steps - every:
         raise AssertionError(f"resumed run launches {launches}")
+    if on_card:
+        check_projected("resumed run", launches, steps - every)
     if not gap.max() <= SMALL_LOSS_RTOL:
         raise AssertionError(f"resumed losses {gap.max()} from the uninterrupted run")
     return launches
@@ -1487,12 +1717,13 @@ def serve_ckpt_phase(roots, merged, device, tmp, *, views=4, max_batch=8):
     """The merged checkpoints the training CLI wrote (``roots``: float32 and
     int8 cold attributes, each a ``--ckpt-dir`` holding ``merged/``) served
     by ``serve_gs.main``; the float32 checkpoint's images against a server
-    built in memory on ``merged`` (the CLI's final state merged here) -> the
-    forward launches of the two serving runs (the count set to 0 just
-    before each and read just after, and the forward kernel's error against
+    built in memory on ``merged`` (the CLI's final state merged here) ->
+    every kernel's launches over the two serving runs (the counts set to 0
+    just before each and read just after), and the forward kernel's error against
     its plain version and both their times on the float32 run's first
     (cold) dispatch, None where the kernel did not serve it)."""
-    served, calls, launches, dispatches, cold = {}, [], 0, [], None
+    served, calls, dispatches, cold = {}, [], [], None
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     real_serve = GSRenderServer.serve
 
     def recording_serve(self, rig):
@@ -1506,11 +1737,12 @@ def serve_ckpt_phase(roots, merged, device, tmp, *, views=4, max_batch=8):
             argv += ["--max-batch", str(max_batch), "--passes", "2"]
             argv += ["--telemetry-json", str(tmp / f"{name}.json")]
             argv += ["--device", device]
-            rasterize.LAUNCHES = 0
+            zero_launches()
             with patched(GSRenderServer, "serve", recording_serve):
                 with kernel_calls(dispatches):
                     rc = serve_gs.main(argv)
-            launches += rasterize.LAUNCHES
+            for k, n in launch_counts().items():
+                launches[k] += n
             launched = [d[1:] for d in dispatches if d[1][0].shape[0]]
             if name == "f32" and launched:
                 cold = launched[0]  # (feats, origins), tile
@@ -1649,11 +1881,11 @@ def observed_fit_partitions(device, rec):
         )
 
         def timed(g, opt, batch):
-            counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+            counts = launch_counts()
             rec["part_losses"].append(partition_losses(
                 fwd, g, batch, grid.n_tiles, cfg.lambda_dssim, kw["win_size"]
             ))
-            rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+            set_launches(counts)
             calls = []
             sync(device)
             t0 = time.perf_counter()
@@ -1669,12 +1901,9 @@ def observed_fit_partitions(device, rec):
         return timed
 
     def fit(g, cams, gts, masks, cfg, *, mesh, **kw):
-        f0, b0 = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        c0 = launch_counts()
         out = real_fit(g, cams, gts, masks, cfg, mesh=mesh, **kw)
-        rec["fit_launches"] = {
-            "fwd": rasterize.LAUNCHES - f0,
-            "bwd": rasterize.BWD_LAUNCHES - b0,
-        }
+        rec["fit_launches"] = launches_since(c0)
         rec.update(
             g0=g, g1=out[0], losses=out[2], cams=cams, gts=gts, masks=masks,
             cfg=cfg, grid=kw["grid"], extent=kw["extent"], mesh=str(mesh),
@@ -1785,9 +2014,9 @@ def train_cli_phase(
     rec = {}
     t0 = time.perf_counter()
     with observed_fit_partitions(device, rec):
-        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        zero_launches()
         text = run_cli(argv)
-        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        launches = launch_counts()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
     losses = np.asarray(rec["losses"])
@@ -1815,6 +2044,8 @@ def train_cli_phase(
         raise AssertionError(f"train CLI losses {losses}")
     if on_card and not fit["bwd"] == fit["fwd"] > 0:
         raise AssertionError(f"fit_partitions launches {fit}")
+    if on_card:
+        check_projected("train CLI fit_partitions", fit, steps)
     for p, (a, b) in enumerate(zip(first, last)):
         if not b < a:
             raise AssertionError(f"partition {p}: loss did not fall {a} -> {b}")
@@ -1911,7 +2142,7 @@ def mesh_axes_phase(rec, device, *, budgets=(1.0, 0.9), reps=3):
         kw = dict(views=1, k_tiers=sched.k_tiers, tier_caps=sched.tier_caps,
                   assign_impl=impl, assign_budget=budget, return_overflow=True)
         out = {}
-        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        zero_launches()
         for sb in budgets:
             c = dataclasses.replace(cfg, strip_budget=sb)
             step = dist_mod.make_gs_train_step(mesh, c, grid, rec["extent"], **kw)
@@ -1924,8 +2155,8 @@ def mesh_axes_phase(rec, device, *, budgets=(1.0, 0.9), reps=3):
                 times.append((time.perf_counter() - t0) * 1e3)
             out[sb] = {"step_loss": float(loss), "step_ms": times,
                        "overflow": (int(ov["tiles"]), int(ov["assign"]))}
-        launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
-        counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        launches = launch_counts()
+        counts = launch_counts()
         for sb in budgets:
             fwd = dist_mod.make_gs_forward(
                 mesh, grid, K=cfg.assign_K, lambda_dssim=cfg.lambda_dssim,
@@ -1934,7 +2165,7 @@ def mesh_axes_phase(rec, device, *, budgets=(1.0, 0.9), reps=3):
                 loss, tiles, _ = fwd(g, batch["cam"], batch["gt_tiles"],
                                      batch["mask_tiles"])
             out[sb].update(loss=float(loss), tiles=tiles)
-        rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+        set_launches(counts)
     finally:
         mesh_mod.destroy_distributed()
     a, b = (out[sb] for sb in budgets)
@@ -1957,6 +2188,8 @@ def mesh_axes_phase(rec, device, *, budgets=(1.0, 0.9), reps=3):
         launches["bwd"] == launches["fwd"] > 0
     ):
         raise AssertionError(f"mesh axes launches {launches}")
+    if torch.device(device).type == "cuda":
+        check_projected("mesh axes", launches, reps * len(budgets))
     return launches
 
 
@@ -2051,7 +2284,7 @@ def wire_phase(rec, device, *, steps=3):
         kw = dict(views=1, k_tiers=sched.k_tiers, tier_caps=sched.tier_caps,
                   assign_impl=impl, assign_budget=budget, return_overflow=True)
         out = {}
-        total = {"fwd": 0, "bwd": 0}
+        total = dict.fromkeys(LAUNCH_KEYS, 0)
         # each variant's first-step Adam first moments, and each compress
         # mode's first call: (summed gradients in, compressed out)
         first_m, seen = {}, {}
@@ -2071,7 +2304,7 @@ def wire_phase(rec, device, *, steps=3):
                 gg, oo = g, init_opt(g)
                 err = dist_mod.zero_err(g, c.grad_compress)
                 times, losses = [], []
-                rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+                zero_launches()
                 for _ in range(steps):
                     sync(device)
                     t0 = time.perf_counter()
@@ -2084,7 +2317,7 @@ def wire_phase(rec, device, *, steps=3):
                     losses.append(float(loss))
                     if len(losses) == 1 and name.startswith(("f32", "compress")):
                         first_m[name] = {k: m.clone() for k, m in oo.m.items()}
-                launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+                launches = launch_counts()
                 for k in total:
                     total[k] += launches[k]
                 del gg, oo
@@ -2092,11 +2325,11 @@ def wire_phase(rec, device, *, steps=3):
                     mesh, grid, K=cfg.assign_K, lambda_dssim=cfg.lambda_dssim,
                     return_tiles=True, gather_mode=c.gather_mode,
                     dtype_policy=c.dtype_policy, **kw)
-                counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+                counts = launch_counts()
                 with torch.no_grad():
                     floss, tiles, _ = fwd(g, batch["cam"], batch["gt_tiles"],
                                           batch["mask_tiles"])
-                rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+                set_launches(counts)
                 res = max((float(e.abs().max()) for e in err.values()), default=0.0) \
                     if err else None
                 out[name] = {"step_ms": times, "losses": losses, "launches": launches,
@@ -2104,7 +2337,7 @@ def wire_phase(rec, device, *, steps=3):
                              "overflow": (int(ov["tiles"]), int(ov["assign"]))}
         # where split's extra step time goes: one step of each under the
         # profiler (launches not counted)
-        counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        counts = launch_counts()
         prof = {}
         for name in ("f32", "split"):
             c = dataclasses.replace(cfg, **dict(WIRE_VARIANTS)[name])
@@ -2113,7 +2346,7 @@ def wire_phase(rec, device, *, steps=3):
             rows, share, wall, _ = device_profile(
                 lambda: step(g, opt0, batch), 1, g.means.device)
             prof[name] = ({k: t for k, (_, t) in rows}, share, wall)
-        rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+        set_launches(counts)
         # the wire bytes of each table layout, from the tables themselves
         p0 = type(g)(*(f[0, :128] for f in g))
         splats = project(p0, select(rec["cams"], 0))
@@ -2152,6 +2385,8 @@ def wire_phase(rec, device, *, steps=3):
         la = o["launches"]
         if on_card and not la["bwd"] == la["fwd"] >= steps:
             raise AssertionError(f"wire {name}: launches {la}")
+        if on_card:
+            check_projected(f"wire {name}", la, steps)
     for name in ("compress bf16", "compress int8"):
         if abs(out[name]["loss"] - out["f32"]["loss"]) > 1e-7:
             raise AssertionError(f"wire {name}: forward loss {out[name]['loss']} "
@@ -2234,7 +2469,7 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
         kw = dict(views=1, k_tiers=sched.k_tiers, tier_caps=sched.tier_caps,
                   assign_impl=impl, assign_budget=budget, return_overflow=True)
         out = {}
-        total = {"fwd": 0, "bwd": 0}
+        total = dict.fromkeys(LAUNCH_KEYS, 0)
         for name, opts, which in EXCHANGE_VARIANTS:
             c = dataclasses.replace(cfg, **opts)
             step = dist_mod.make_gs_train_step(
@@ -2243,7 +2478,7 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
             gg, oo = g, init_opt(g)
             err = dist_mod.zero_err(g, c.grad_compress)
             times, losses, ovs = [], [], []
-            rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+            zero_launches()
             for _ in range(steps):
                 sync(device)
                 t0 = time.perf_counter()
@@ -2255,7 +2490,7 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
                 times.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(loss))
                 ovs.append({k: v.tolist() for k, v in ov.items()})
-            launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+            launches = launch_counts()
             for k in total:
                 total[k] += launches[k]
             del gg, oo, err
@@ -2289,23 +2524,23 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
         fwd = dist_mod.make_gs_forward(
             mesh, grid, K=cfg.assign_K, lambda_dssim=cfg.lambda_dssim,
             exchange=True, exchange_budget=quarter, **kw)
-        counts = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        counts = launch_counts()
         with torch.no_grad():
             s_loss, s_ov = fwd(g, batch["cam"], batch["gt_tiles"],
                                batch["mask_tiles"])
-        rasterize.LAUNCHES, rasterize.BWD_LAUNCHES = counts
+        set_launches(counts)
         starved = {"loss": float(s_loss), "exchange": int(s_ov["exchange"])}
         # ... and fit_partitions grows it off the counter
         esched = dist_mod.ExchangeSchedule(budget=quarter)
         before = esched.budget
         c = dataclasses.replace(cfg, exchange=True, exchange_budget=quarter)
-        rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+        zero_launches()
         _, _, fit_losses = dist_mod.fit_partitions(
             g, select(rec["cams"], vi), rec["gts"][:, :1], rec["masks"][:, :1],
             c, mesh=mesh,
             steps=fit_steps, extent=rec["extent"], grid=grid, schedule=sched,
             exchange_schedule=esched)
-        fit_launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+        fit_launches = launch_counts()
         for k in total:
             total[k] += fit_launches[k]
     finally:
@@ -2334,6 +2569,8 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
         la = o["launches"]
         if on_card and not la["bwd"] == la["fwd"] >= steps:
             raise AssertionError(f"exchange {name}: launches {la}")
+        if on_card:
+            check_projected(f"exchange {name}", la, steps)
     log(f"exchange starved: budget {quarter} (a quarter of the demand {demand}): "
         f"counter {starved['exchange']}, loss {starved['loss']:.9f}; "
         f"fit_partitions {fit_steps} steps from it: budget {before} -> "
@@ -2346,6 +2583,8 @@ def exchange_phase(rec, device, *, steps=3, fit_steps=4):
             on_card and not fit_launches["bwd"] == fit_launches["fwd"] >= fit_steps):
         raise AssertionError(f"exchange growth: {before} -> {esched.budget}, "
                              f"demand {demand}, losses {fit_losses}")
+    if on_card:
+        check_projected("exchange fit_partitions", fit_launches, fit_steps)
     return total
 
 
@@ -2482,7 +2721,7 @@ def timeseries_phase(
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     runs = []
-    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    zero_launches()
     for T in (timesteps, timesteps + 1):
         rec = {}
         t0 = time.perf_counter()
@@ -2490,7 +2729,7 @@ def timeseries_phase(
             rec["text"] = run_cli(argv + ["--timesteps", str(T)])
         rec["seconds"] = time.perf_counter() - t0
         runs.append(rec)
-    launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
     first, restart = runs
     fits = first["fits"] + restart["fits"]
@@ -2529,6 +2768,9 @@ def timeseries_phase(
         raise AssertionError("the restart's warm tree differs from the committed one")
     if on_card and not (launches["fwd"] > 0 and launches["bwd"] > 0):
         raise AssertionError(f"timeseries launches {launches}")
+    if on_card:
+        check_projected("timeseries", launches,
+                        sum(len(fit["losses"]) for fit in fits))
     chain = root / "timeseries"
     sizes, deltas = {}, {}
     for d in sorted(chain.glob("step_*")):
@@ -2610,16 +2852,17 @@ def log_record(label, rec):
 
 
 def rank_launches(label, recs, least):
-    """Both kernels' launches summed over every rank of the records'
-    runs; each rank of each run must have launched each >= ``least``."""
-    total = {"fwd": 0, "bwd": 0}
+    """Every kernel's launches summed over every rank of the records' runs
+    (``launch_counts``' keys); each rank of each run must have launched
+    each >= ``least``."""
+    total = dict.fromkeys(LAUNCH_KEYS, 0)
     for rec in recs:
         for r in rec["ranks"]:
-            fwd, bwd = r["launches"]
-            if min(fwd, bwd) < least:
-                raise AssertionError(f"{label}: rank {r['rank']} launched {fwd} / {bwd}")
-            total["fwd"] += fwd
-            total["bwd"] += bwd
+            counts = dict(zip(LAUNCH_KEYS, r["launches"] + r["project_launches"]))
+            if min(counts.values()) < least:
+                raise AssertionError(f"{label}: rank {r['rank']} launched {counts}")
+            for k, n in counts.items():
+                total[k] += n
     return total
 
 
@@ -2711,8 +2954,12 @@ def torchrun_phase(tmp, cli_losses, series, *, device="cuda", n=None,
     )
     if warm["hits"] != warm["requests"] or (on_card and served["kernel_launches"] <= 0):
         raise AssertionError(f"serve_gs passes {served['passes']}")
+    fwd, bwd = served["project_launches"]
+    if on_card:
+        check_projected("serve_gs", {"project_fwd": fwd, "project_bwd": bwd})
     launches = rank_launches("torchrun", [rec, restart], int(on_card))
     launches["fwd"] += served["kernel_launches"]
+    launches["project_fwd"] += fwd
     log(
         f"torchrun phase: {gs_s + ts_s + serve_s:.3f} s (gs {gs_s:.3f}, timeseries "
         f"restart {ts_s:.3f}, serve_gs {serve_s:.3f}); launches (every rank, and "
@@ -2799,7 +3046,7 @@ def coarse_phase(rec, device, *, sb=4, steps=3, reps=2, iso_tier="full"):
     fits = {}
     real_make = train_mod.make_train_step
     gts, masks = rec["gts"], rec["masks"]
-    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    zero_launches()
     for label, coarse in (("coarse", sb), ("dense", None)):
         counters = []
 
@@ -2814,7 +3061,7 @@ def coarse_phase(rec, device, *, sb=4, steps=3, reps=2, iso_tier="full"):
             return counted
 
         fcfg = dataclasses.replace(cfg, coarse=coarse, assign_impl="dense")
-        f0, b0 = rasterize.LAUNCHES, rasterize.BWD_LAUNCHES
+        c0 = launch_counts()
         sync(device)
         t0 = time.perf_counter()
         with patched(train_mod, "make_train_step", make):
@@ -2827,10 +3074,9 @@ def coarse_phase(rec, device, *, sb=4, steps=3, reps=2, iso_tier="full"):
             losses=losses,
             counters=counters,
             s=time.perf_counter() - t0,
-            fwd=rasterize.LAUNCHES - f0,
-            bwd=rasterize.BWD_LAUNCHES - b0,
+            **launches_since(c0),
         )
-    launches = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    launches = launch_counts()
     log(f"coarse fit_partition ({steps} steps, assign_impl dense): {fits}")
     c, d = fits["coarse"], fits["dense"]
     if not all(np.isfinite(c["losses"] + d["losses"])):
@@ -2838,6 +3084,9 @@ def coarse_phase(rec, device, *, sb=4, steps=3, reps=2, iso_tier="full"):
     on_card = torch.device(device).type == "cuda"
     if on_card and not all(f["fwd"] > 0 and f["bwd"] > 0 for f in fits.values()):
         raise AssertionError(f"coarse fit launches {fits}")
+    for label, f in fits.items():
+        if on_card:
+            check_projected(f"coarse fit {label}", f, steps)
     gap = max(abs(a - b) for a, b in zip(c["losses"], d["losses"]))
     if not any(c["counters"]):
         if gap > 1e-6:
@@ -3103,7 +3352,7 @@ def lm_serve_phase(device):
     consistency of both at full width, the ten SMOKE archs card vs CPU, the
     attention yardstick -> {records, "launches": both kernels' counts over
     the phase (set to 0 just before it)}."""
-    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = {"serve": [lm_serve_run(a, device, **LM_SERVE)
                      for a in ("qwen1.5-4b", "mamba2-780m")]}
@@ -3121,9 +3370,12 @@ def lm_serve_phase(device):
     torch.cuda.empty_cache()
     out["smoke_vs_cpu"] = lm_smoke_vs_cpu(device)
     out["yardstick"] = attention_yardstick(device)
-    out["launches"] = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    out["launches"] = launch_counts()
     log(f"LM serve phase {time.perf_counter() - t0:.3f} s, kernel launches "
         f"{out['launches']} (the LM path renders nothing)")
+    if any(out["launches"].values()):
+        raise AssertionError(f"a splat kernel launched on the LM path: "
+                             f"{out['launches']}")
     return out
 
 
@@ -3468,7 +3720,7 @@ def lm_train_phase(device, tmp):
     torch.cuda.empty_cache()
     log(f"LM train phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         "allocated at its start")
-    rasterize.LAUNCHES = rasterize.BWD_LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     ckpt = tmp / "lm_train"
     ckpt.mkdir(parents=True, exist_ok=True)
@@ -3488,12 +3740,12 @@ def lm_train_phase(device, tmp):
         out["resume"] = lm_resume(device, resume)
     finally:
         shutil.rmtree(resume, ignore_errors=True)
-    out["launches"] = {"fwd": rasterize.LAUNCHES, "bwd": rasterize.BWD_LAUNCHES}
+    out["launches"] = launch_counts()
     out["seconds"] = time.perf_counter() - t0
     log(f"LM train phase {out['seconds']:.3f} s, kernel launches "
         f"{out['launches']} (the LM path renders nothing)")
-    if out["launches"] != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"a compositor kernel launched on the LM path: "
+    if any(out["launches"].values()):
+        raise AssertionError(f"a splat kernel launched on the LM path: "
                              f"{out['launches']}")
     return out
 
@@ -3593,9 +3845,11 @@ def main(argv=None):
     bwd_sweep_err = bwd_kernel_phase(device)
     issue = {
         name: rasterize.hot_loop(rasterize.sass(name), f"{name}_kernelILb1E")
-        for name in rasterize.SOURCES
+        for name in ("rasterize_fwd", "rasterize_bwd")
     }
     log(f"inner loops from SASS (the one-column build): {json.dumps(issue)}")
+    # 3b. the projection pair at the main path's shapes
+    proj = project_phase(device)
 
     # 4. serve at paper scale; the launch count covers the two passes only
     torch.cuda.reset_peak_memory_stats()
@@ -3611,6 +3865,10 @@ def main(argv=None):
     log(f"serve: peak device memory {peak_gib:.2f} GiB")
     if serve_launches != tel["batches"] or serve_launches == 0:
         raise AssertionError(f"{serve_launches} launches, {tel['batches']} dispatches")
+    # every dispatch renders, and renders what it projected
+    check_projected("serve", info["counts"])
+    if info["counts"]["project_fwd"] < serve_launches:
+        raise AssertionError(f"serve: {info['counts']} for {serve_launches} dispatches")
     small_scene_check(device)
     # the forward kernel's time on the first dispatch's own features
     near = [v for v in range(n_views) if passes[0][v].rung == 0]
@@ -3688,6 +3946,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ckpt_serve_launches, cold = serve_ckpt_phase(roots, merged, device, tmp)
+        check_projected("serve from checkpoint", ckpt_serve_launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"serve from checkpoint: peak device memory {peak:.2f} GiB")
         # 10. the tooling: the dry run, and the LM step's counted bound
@@ -3708,35 +3967,32 @@ def main(argv=None):
     fwd_errs += [cold["max_abs_err"]]
     bwd_errs = [bwd_sweep_err] + [t["max_abs_err"] for t in tiers["bwd"].values()]
     bwd_errs += [t["max_abs_err"] for t in cli_tiers["bwd"].values()]
+    gs_paths = {
+        "serve": info["counts"],
+        "train": train_launches,
+        "resume": resume_launches,
+        "train CLI": cli_launches,
+        "mesh axes": axes_launches,
+        "wire": wire_launches,
+        "exchange": ex_launches,
+        "timeseries": ts_launches,
+        "coarse": coarse_launches,
+        "serve from checkpoint": ckpt_serve_launches,
+        "torchrun (every rank, and its serve)": tr_launches,
+    }
+    lm_paths = {"LM serve": lm["launches"], "LM train": lm_train["launches"]}
     log(
-        f"launches on the main paths: serve fwd {serve_launches}; train fwd "
-        f"{train_launches['fwd']} bwd {train_launches['bwd']}; resume fwd "
-        f"{resume_launches['fwd']} bwd {resume_launches['bwd']}; train CLI fwd "
-        f"{cli_launches['fwd']} bwd {cli_launches['bwd']}; mesh axes fwd "
-        f"{axes_launches['fwd']} bwd {axes_launches['bwd']}; wire fwd "
-        f"{wire_launches['fwd']} bwd {wire_launches['bwd']}; exchange fwd "
-        f"{ex_launches['fwd']} bwd {ex_launches['bwd']}; timeseries fwd "
-        f"{ts_launches['fwd']} bwd {ts_launches['bwd']}; coarse fwd "
-        f"{coarse_launches['fwd']} bwd {coarse_launches['bwd']}; serve from "
-        f"checkpoint fwd {ckpt_serve_launches}; LM serve fwd "
-        f"{lm['launches']['fwd']} bwd {lm['launches']['bwd']}; LM train fwd "
-        f"{lm_train['launches']['fwd']} bwd {lm_train['launches']['bwd']}; "
-        f"torchrun (every rank, and its serve) fwd {tr_launches['fwd']} bwd "
-        f"{tr_launches['bwd']}"
+        "launches on the main paths: "
+        + "; ".join(f"{path} {counts}" for path, counts in {**gs_paths, **lm_paths}.items())
     )
-    fwd_launches = serve_launches + train_launches["fwd"]
-    fwd_launches += resume_launches["fwd"] + cli_launches["fwd"]
-    fwd_launches += axes_launches["fwd"] + wire_launches["fwd"]
-    fwd_launches += ex_launches["fwd"] + ckpt_serve_launches
-    fwd_launches += ts_launches["fwd"] + coarse_launches["fwd"]
-    fwd_launches += tr_launches["fwd"]
+    launches = {k: sum(c[k] for c in gs_paths.values()) for k in LAUNCH_KEYS}
     kernels = [
         {
             "name": "rasterize_fwd",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rasterize_fwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:96",
-            "launches": fwd_launches,
+            "launches": launches["fwd"],
             "max_abs_err": max(fwd_errs),
             "ms": stats["ms"],
             "plain_ms": stats["plain_ms"],
@@ -3751,10 +4007,7 @@ def main(argv=None):
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rasterize_bwd.cu",
             "replaces": "src/repro/kernels/rasterize.py:169",
-            "launches": train_launches["bwd"] + resume_launches["bwd"]
-            + cli_launches["bwd"] + axes_launches["bwd"] + wire_launches["bwd"]
-            + ex_launches["bwd"] + ts_launches["bwd"] + coarse_launches["bwd"]
-            + tr_launches["bwd"],
+            "launches": launches["bwd"],
             "max_abs_err": max(bwd_errs),
             "ms": bwd_stats["ms"],
             "plain_ms": bwd_stats["plain_ms"],
@@ -3765,6 +4018,31 @@ def main(argv=None):
             "lm_train_launches": lm_train["launches"]["bwd"],
         },
     ]
+    timed = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    for part, err in (
+        ("fwd", max(row["max_rel_err"] for row in proj.values())),
+        ("bwd", max(max(row["grad_gates"].values()) for row in proj.values())),
+    ):
+        name = f"project_{part}"
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": None,
+                "launches": launches[name],
+                # forward: the largest error over its field's magnitude;
+                # backward: the largest gradient gate (<= 1)
+                "max_err": err,
+                "shapes": {
+                    label: {k: row[part][k] for k in timed}
+                    for label, row in proj.items()
+                },
+                "library_ms": None,
+                "lm_serve_launches": lm["launches"][name],
+                "lm_train_launches": lm_train["launches"][name],
+            }
+        )
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     device_info = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -562,11 +562,13 @@ def _loss_partials(pred, gt, mask, *, win_size: int = 7):
 
 def _project_rows(g: Gaussians, cam: Camera, views: bool) -> Splats2D:
     """Project a (Pl, Nl) shard -> (Vl, Pl, Nl, ...) splats with a view
-    batch, (Pl, Nl, ...) without."""
-    per = [project(Gaussians(*(f[p] for f in g)), cam)
-           for p in range(g.means.shape[0])]
-    return Splats2D(*(torch.stack(fs, dim=1 if views else 0)
-                      for fs in zip(*per)))
+    batch, (Pl, Nl, ...) without: one ``project`` of the Pl * Nl rows."""
+    rows = tuple(g.means.shape[:2])
+    flat = project(Gaussians(*(f.reshape((-1,) + tuple(f.shape[2:]))
+                               for f in g)), cam)
+    lead = 1 if views else 0
+    return Splats2D(*(f.reshape(tuple(f.shape[:lead]) + rows
+                                + tuple(f.shape[lead + 1:])) for f in flat))
 
 
 def _check_forward_opts(gather_mode, dtype_policy):

@@ -5,11 +5,11 @@ and ``rasterize_bwd``.  The sources are ``csrc/rasterize_fwd.cu`` and
 ``csrc/rasterize_bwd.cu`` (their header notes give the design and what
 bounds each), which share the alpha arithmetic of ``csrc/alpha_terms.cuh``.
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C entry point at first use -- both ``nvcc`` processes started
-together -- under ``build/repro_torch_kernels/`` at the repository root,
-and loaded with ``ctypes``.  A library's file name carries a hash of every
-file under ``csrc/`` and of the flags, so an edit to any source rebuilds
-both.
+plain C entry point at first use -- with the projection's pair
+(``kernels/project.py``), all four ``nvcc`` processes started together --
+under ``build/repro_torch_kernels/`` at the repository root, and loaded
+with ``ctypes``.  A library's file name carries a hash of every file under
+``csrc/`` and of the flags, so an edit to any source rebuilds them all.
 
 Both kernels run one block per tile with ``PIXELS_PER_THREAD`` pixels per
 thread; ``launch_geometry`` computes the block and its shared memory, and
@@ -49,9 +49,12 @@ BWD_LAUNCHES = 0
 RECORDER = None
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-#: kernel name -> its source; each builds into its own library
+#: kernel name -> its source; each builds into its own library.  The
+#: projection's pair is bound by ``kernels/project.py``
 SOURCES = {"rasterize_fwd": CSRC / "rasterize_fwd.cu",
-           "rasterize_bwd": CSRC / "rasterize_bwd.cu"}
+           "rasterize_bwd": CSRC / "rasterize_bwd.cu",
+           "project_fwd": CSRC / "project_fwd.cu",
+           "project_bwd": CSRC / "project_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

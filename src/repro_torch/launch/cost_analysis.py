@@ -38,7 +38,8 @@ semantics are the reference's:
     ``ctypes`` (no dispatcher op stands for them): each launch is recorded
     by the kernel's wrapper and charged ``KERNEL_OPS`` operations per
     splat-pixel (T * K * tile_h * tile_w) and its operand and output bytes,
-    each read or written once.
+    each read or written once.  The projection pair (``kernels/project.py``)
+    likewise: ``PROJECT_OPS`` operations a splat and view.
 
 Everything is per rank: each rank of a distributed program runs ``fn`` on
 its own shard.  ``per_op`` attributes the totals to op names (the rows
@@ -56,12 +57,17 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.kernels import project as project_kernels
 from repro_torch.kernels import rasterize
 
 #: operations per splat-pixel of each compositor kernel, as the plain
 #: version writes the algorithm (the notes in csrc/rasterize_fwd.cu and
 #: csrc/rasterize_bwd.cu): the work behind the kernels' bounds
 KERNEL_OPS = {"rasterize_fwd": 27, "rasterize_bwd": 85}
+#: operations a splat and view of each projection kernel: the forward's
+#: ~280 of the plain version (transform, Jacobian, the 3x3 covariance and
+#: its 2x3 sandwich, the eigenvalue bound, the tests), its gradient twice
+PROJECT_OPS = {"project_fwd": 280, "project_bwd": 560}
 
 #: c10d op -> the reference's collective kind
 C10D_KINDS = {
@@ -246,6 +252,18 @@ def kernel_costs(name: str, T: int, K: int, F: int, tile_h: int,
     return ops, float(feats + origins + 2 * planes + feats)
 
 
+def project_costs(name: str, V: int, N: int) -> Tuple[float, float]:
+    """(operations, bytes) of one projection launch over N splats and V
+    views: the forward reads each splat's 45 bytes (means, log-scales,
+    quaternion, alpha, active) once and writes 29 a view (mean2d, cov2d,
+    depth, radius, valid); the backward reads 40 (means, log-scales,
+    quaternion) and 24 of cotangent a view, and writes 40 of gradient."""
+    ops = float(PROJECT_OPS[name]) * V * N
+    if name == "project_fwd":
+        return ops, float(N * 45 + V * N * 29)
+    return ops, float(N * 80 + V * N * 24)
+
+
 def analyze(fn, *args, pod_size: int = 0, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and -> its JSON-friendly cost
     summary: the reference's keys (``flops``, ``hbm_bytes``,
@@ -257,14 +275,18 @@ def analyze(fn, *args, pod_size: int = 0, **kwargs) -> dict:
     ``pod_size`` is the ranks a pod holds (0: no pod axis)."""
     mode = _CostMode(pod_size)
     launches: list = []
-    prev, rasterize.RECORDER = rasterize.RECORDER, launches
+    projections: list = []
+    prev = rasterize.RECORDER, project_kernels.RECORDER
+    rasterize.RECORDER, project_kernels.RECORDER = launches, projections
     try:
         with mode:
             out = fn(*args, **kwargs)
     finally:
-        rasterize.RECORDER = prev
+        rasterize.RECORDER, project_kernels.RECORDER = prev
     for name, *shape in launches:
         mode.charge(name, *kernel_costs(name, *shape))
+    for name, *shape in projections:
+        mode.charge(name, *project_costs(name, *shape))
     kinds: Dict[str, dict] = {}
     for col in mode.collectives:
         d = kinds.setdefault(col.op, {"count": 0, "wire_bytes": 0.0,

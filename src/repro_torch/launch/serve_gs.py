@@ -12,8 +12,9 @@ requests through the bounded-queue batcher (core/serving.py): each pass
 submits a mixed near/far orbital rig (near views exercise rung 0, far
 views the pruned rungs) and flushes.  Exit is nonzero if a repeat pass
 fails to hit the cache.  ``--device`` (default ``cuda``) picks the card or
-the CPU.  The telemetry JSON also holds the restore's seconds and the
-forward kernel's launches in this process.
+the CPU.  The telemetry JSON also holds the restore's seconds, the
+compositor's forward kernel's launches in this process and the
+projection's (forward, backward) launches.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core.cameras import concat, orbital_rig
 from repro_torch.core.serving import GSRenderServer
+from repro_torch.kernels import project as project_kernels
 from repro_torch.kernels import rasterize
 
 
@@ -108,7 +110,10 @@ def main(argv=None) -> int:
         with open(args.telemetry_json, "w") as f:
             json.dump({"telemetry": tel, "passes": passes,
                        "scene": meta, "restore_s": restore_s,
-                       "kernel_launches": rasterize.LAUNCHES}, f, indent=1)
+                       "kernel_launches": rasterize.LAUNCHES,
+                       "project_launches": [
+                           project_kernels.PROJECT_LAUNCHES,
+                           project_kernels.PROJECT_BWD_LAUNCHES]}, f, indent=1)
         print(f"[serve-gs] telemetry -> {args.telemetry_json}")
     if args.passes >= 2 and passes[-1]["hits"] < passes[-1]["requests"]:
         raise SystemExit(

@@ -93,6 +93,7 @@ from repro_torch.core.tiling import TileGrid
 from repro_torch.core.train import (GSTrainCfg, _check_resume_policy,
                                     init_opt)
 from repro_torch.data.tokens import SyntheticTokens
+from repro_torch.kernels import project as project_kernels
 from repro_torch.kernels import rasterize
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import (TrainCfg, init_opt_state, init_params,
@@ -300,8 +301,8 @@ def _dir_bytes(path) -> int:
 
 def _rank_stats(dev, **stats):
     """This rank's ``stats`` with its device-memory and host-memory (resident
-    set) peaks and both kernels' launches, all-gathered -> every rank's, in
-    rank order."""
+    set) peaks and the compositor's and the projection's kernel launches
+    (forward, backward), all-gathered -> every rank's, in rank order."""
     stats["rank"] = torch.distributed.get_rank()
     stats["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                          if dev.type == "cuda" else None)
@@ -309,6 +310,8 @@ def _rank_stats(dev, **stats):
     stats["host_peak_gib"] = \
         resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     stats["launches"] = [rasterize.LAUNCHES, rasterize.BWD_LAUNCHES]
+    stats["project_launches"] = [project_kernels.PROJECT_LAUNCHES,
+                                 project_kernels.PROJECT_BWD_LAUNCHES]
     out = [None] * torch.distributed.get_world_size()
     torch.distributed.all_gather_object(out, stats)
     return out

@@ -36,9 +36,11 @@ torch = pytest.importorskip("torch")
 
 import _torch_dist  # noqa: E402
 import _torch_dist_ranks as ranks  # noqa: E402
+from repro_torch.kernels import project as project_kernels  # noqa: E402
 from repro_torch.kernels import rasterize  # noqa: E402
-from repro_torch.launch.cost_analysis import (KERNEL_OPS, analyze,  # noqa: E402
-                                              kernel_costs)
+from repro_torch.launch.cost_analysis import (KERNEL_OPS,  # noqa: E402
+                                              PROJECT_OPS, analyze,
+                                              kernel_costs, project_costs)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
@@ -133,4 +135,28 @@ def test_recorded_launch_is_charged(name):
     want = feats + 8 * T + planes if name == "rasterize_fwd" \
         else 2 * feats + 8 * T + 2 * planes
     assert row["bytes"] == want == kernel_costs(name, T, K, F, th, tw)[1]
+    assert r["matmul_flops"] == 0 and r["flops"] == ops + 3
+
+
+@pytest.mark.parametrize("name", ["project_fwd", "project_bwd"])
+def test_recorded_projection_is_charged(name):
+    """A projection launch the wrapper records (appended by hand here) is
+    charged ``PROJECT_OPS`` a splat and view and its bytes, each read or
+    written once, under its own name."""
+    V, N = 3, 1000
+
+    def launch(x):
+        project_kernels.RECORDER.append((name, V, N))
+        return x + 1
+
+    r = analyze(launch, torch.zeros(3))
+    assert project_kernels.RECORDER is None
+    row = r["per_op"][name]
+    ops = PROJECT_OPS[name] * V * N
+    # forward: 45 B a splat read, 29 a view written; backward: 40 read and
+    # 40 written a splat, 24 of cotangent a view read
+    want = N * 45 + V * N * 29 if name == "project_fwd" \
+        else N * (40 + 40) + V * N * 24
+    assert row["count"] == 1 and row["flops"] == ops
+    assert row["bytes"] == want == project_costs(name, V, N)[1]
     assert r["matmul_flops"] == 0 and r["flops"] == ops + 3

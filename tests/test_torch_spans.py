@@ -238,8 +238,9 @@ def test_fit_partitions_spans_and_same_losses(fresh, deterministic, world1):
         assert [k.name for k in kids] == STEP_CHILDREN
         fwd = kids[1]
         inner = [r.name for r in _spans(recs) if r.parent == fwd.seq]
-        # one projection a partition, then the (identity) gather
-        assert inner == ["project", "project", "train.gather"]
+        # one projection of the shard's partitions, then the (identity)
+        # gather
+        assert inner == ["project", "train.gather"]
     # every projection of the steps sits in a forward; the probes' outside
     for p in _spans(recs, "project"):
         parent = seqs.get(p.parent)
