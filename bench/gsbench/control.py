@@ -17,19 +17,18 @@ import torch
 from gsbench import fields, reference, scene
 
 
-def _inputs(cfg: dict, seed: int, dev):
-    field = fields.make_field(cfg["field"], cfg["resolution"], dev)
-    allpts = fields.crossings(field, float(cfg["iso"]))
-    del field
+def _inputs(cfg: dict, seed: int, dev, src):
+    allpts = src.reference_points(cfg, dev)
     rows = scene.select_rows(allpts.shape[0], int(cfg["points"]), seed)
     pts = allpts[torch.from_numpy(rows).to(dev)]
     return pts, fields.height_colors(pts)
 
 
 def train_readings(cfg: dict, seed: int, dev, precision: str = "tf32",
-                   fault: str = "none", ranks: int = 1):
+                   fault: str = "none", ranks: int = 1, src=scene.DENSE):
     """The check's numbers for the reference in ``precision`` against the
-    float32 reference -> {name: reading}.  ``fault`` plants one of a
+    float32 reference -> {name: reading}, on the points of ``src``'s
+    reference side (``scene.source``).  ``fault`` plants one of a
     training step's faults in the float32 reference put in the program's
     place instead: ``"half_batch"`` (the loss over the first half of the
     partitions' tiles alone) or ``"no_exchange"`` (the "part" all-gather
@@ -39,7 +38,7 @@ def train_readings(cfg: dict, seed: int, dev, precision: str = "tf32",
     P, V = int(cfg["partitions"]), int(cfg["views"])
     W = H = int(cfg["image"])
     th, tw, K = int(tc["tile_h"]), int(tc["tile_w"]), int(tc["K"])
-    pts, cols = _inputs(cfg, seed, dev)
+    pts, cols = _inputs(cfg, seed, dev, src)
     pts_np = pts.cpu().numpy()
     center, extent, _ = scene.frame(pts_np)
     views_np = scene.train_views(V, center, extent)
@@ -92,12 +91,13 @@ def train_readings(cfg: dict, seed: int, dev, precision: str = "tf32",
 
 
 def serve_readings(cfg: dict, traffic: dict, seed: int, dev, n: int = 8,
-                   precision: str = "tf32"):
+                   precision: str = "tf32", src=scene.DENSE):
     """The image gap of ``n`` of the traffic's poses rendered in
-    ``precision`` against float32 -> {name: reading}."""
+    ``precision`` against float32 -> {name: reading}, on the points of
+    ``src``'s reference side (``scene.source``)."""
     sc = cfg["serve"]
     W = H = int(cfg["image"])
-    pts, cols = _inputs(cfg, seed, dev)
+    pts, cols = _inputs(cfg, seed, dev, src)
     center, _, radius = scene.frame(pts.cpu().numpy())
     poses = scene.ViewerPoses(traffic, center, radius, seed)
     focal = reference.focal_for(W)

@@ -2,11 +2,16 @@
 
 A cell (an entry of ``workloads``) names a configuration and a traffic mix;
 ``configs/<name>.json`` holds the configuration as it is run,
+``scenes/<name>.py``, where a configuration brings one, its point source
+(``scene.source``: the program's points and the reference's, which may
+make the field slab by slab; without it the field is made whole),
+``tests/small/<name>.json`` its small twin for the CPU tests,
 ``traffic/<name>.json`` the mix's parameters (its ``kind`` picks the
 general driver that reads them: ``train`` or ``serve``),
 ``limits/<cell>.json`` the limit of each number the output check compares,
 and ``metrics/<metric>.py`` the reader of each per-layer metric.  A later
-change adds a cell, a mix or a metric by adding such files.
+change adds a configuration, a cell, a mix or a metric by adding such
+files.
 """
 
 from __future__ import annotations

@@ -2,12 +2,29 @@
 configuration's field, the training rig, and the serving poses of a
 traffic mix.
 
-Points: the field is made on the device (``fields.make_field``), the
-program's extraction finds its crossings, and ``n_points`` of them are
-drawn from the seed (all of them where there are fewer: then the seed
-changes nothing a training cell reads).  Both sides get
-the same rows: the reference extracts again from the same field and checks
-the program's points against its own.
+Points come from the configuration's point source (``source``), the one
+entry that the train and serve runs, the output check and the control go
+through.  A configuration may bring its own in ``scenes/<config>.py``,
+found by name beside ``configs/<config>.json``, ``traffic/``,
+``limits/``, ``metrics/`` and its CPU twin ``tests/small/<config>.json``:
+a module with
+
+- ``points(cfg, seed, device) -> (points, colours, rows, count)``, the
+  program's side (it may import ``repro_torch``, inside the function):
+  the points of the rows kept, on ``device``, their colours
+  (``fields.height_colors``, as the reference colours them), the rows,
+  and the crossings counted;
+- ``reference_points(cfg, device)`` -> every crossing, in the order
+  ``rows`` index: the reference's side, which imports nothing of the
+  program (checked when the file is loaded).  A field too large to make
+  whole is made and extracted slab by slab (``fields.crossings_by_slab``).
+
+Without such a file the source is the dense one (``DENSE``): the field is
+made whole on the device (``fields.make_field``), the program's extraction
+finds its crossings, and ``n_points`` of them are drawn from the seed (all
+of them where there are fewer: then the seed changes nothing a training
+cell reads).  The reference extracts again from the same field, and the
+check holds the program's points against its rows.
 
 Poses (``ViewerPoses``): one general generator for closed-loop viewers,
 parameterised by the traffic file: ``"fresh"`` draws every pose anew on a
@@ -19,12 +36,20 @@ mix of distances in another order.
 
 from __future__ import annotations
 
-from typing import Iterator
+import ast
+import importlib.util
+import re
+import types
+from pathlib import Path
+from typing import Iterator, List
 
 import numpy as np
 import torch
 
 from gsbench import fields, reference
+
+#: the program's top-level module name, which a reference side may not load
+PROGRAM = ("repro_torch",)
 
 
 def rng(seed: int, *stream: int) -> np.random.Generator:
@@ -40,13 +65,15 @@ def select_rows(count: int, n_points: int, seed: int) -> np.ndarray:
     return rng(seed, 0).choice(count, n_points, replace=False)
 
 
-def points_for(cfg: dict, seed: int, device, extract):
-    """-> (points (n, 3) float32 tensor on ``device``, colours (n, 3), rows
-    kept, crossings counted).  ``extract(field, iso, max_points=)`` is the
-    program's extraction; the field is freed before this returns."""
+def dense_points(cfg: dict, seed: int, device):
+    """The dense source's program side -> (points (n, 3) float32 tensor on
+    ``device``, colours (n, 3), rows kept, crossings counted): the whole
+    field, the program's ``extract_isosurface``; the field is freed before
+    this returns."""
+    from repro_torch.data.isosurface import extract_isosurface
     field = fields.make_field(cfg["field"], cfg["resolution"], device)
     cap = int(cfg["max_crossings"])
-    pts, count = extract(field, float(cfg["iso"]), max_points=cap)
+    pts, count = extract_isosurface(field, float(cfg["iso"]), max_points=cap)
     del field
     count = int(count)
     if count >= cap:
@@ -55,6 +82,73 @@ def points_for(cfg: dict, seed: int, device, extract):
     rows = select_rows(count, int(cfg["points"]), seed)
     pts = pts[torch.from_numpy(rows).to(pts.device)]
     return pts, fields.height_colors(pts), rows, count
+
+
+def dense_reference_points(cfg: dict, device) -> torch.Tensor:
+    """The dense source's reference side: every crossing of the whole
+    field by the reference's own extraction."""
+    field = fields.make_field(cfg["field"], cfg["resolution"], device)
+    return fields.crossings(field, float(cfg["iso"]))
+
+
+DENSE = types.SimpleNamespace(points=dense_points,
+                              reference_points=dense_reference_points)
+
+
+def _imported(node) -> Iterator[str]:
+    """Top-level names of the modules that ``node``'s statements import."""
+    for n in ast.walk(node):
+        if isinstance(n, ast.Import):
+            for a in n.names:
+                yield a.name.split(".")[0]
+        elif isinstance(n, ast.ImportFrom) and n.level == 0:
+            yield n.module.split(".")[0]
+
+
+def reference_imports(path: Path) -> List[str]:
+    """The program's modules that a scene file's reference side imports:
+    at module level, in ``reference_points``, or in a function of the file
+    that it calls, directly or through another."""
+    tree = ast.parse(Path(path).read_text(), str(path))
+    defs = {n.name: n for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef))}
+    names = set()
+    for n in tree.body:
+        if not isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef)):
+            names.update(_imported(n))
+    todo, seen = ["reference_points"], set()
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in defs:
+            continue
+        seen.add(name)
+        names.update(_imported(defs[name]))
+        todo.extend(n.id for n in ast.walk(defs[name])
+                    if isinstance(n, ast.Name) and n.id in defs)
+    return sorted(names & set(PROGRAM))
+
+
+def source(cell=None):
+    """The point source of ``cell``'s configuration: the module
+    ``scenes/<config>.py`` of the cell's benchmark where it has one, else
+    ``DENSE`` (also without a cell).  A scene file whose reference side
+    imports the program is refused."""
+    if cell is None:
+        return DENSE
+    path = Path(cell.bench) / "scenes" / f"{cell.spec['config']}.py"
+    if not path.exists():
+        return DENSE
+    bad = reference_imports(path)
+    if bad:
+        raise ImportError(f"{path}: the reference side imports the program "
+                          f"({', '.join(bad)})")
+    spec = importlib.util.spec_from_file_location(
+        "gsbench_scene_" + re.sub(r"\W", "_", cell.spec["config"]), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def frame(points: np.ndarray):

@@ -38,7 +38,6 @@ def run_serve(run: Run):
     from repro_torch.core.render import resolve_assignment
     from repro_torch.core.serving import GSRenderServer, ServeCfg
     from repro_torch.core.tiling import TileGrid
-    from repro_torch.data.isosurface import extract_isosurface
     from repro_torch.kernels import rasterize
 
     cfg_d, tr = run.cell.config, run.cell.traffic
@@ -57,8 +56,8 @@ def run_serve(run: Run):
                       W, H)
 
     with run.spans.span("setup.points"):
-        pts, cols, rows, count = scene.points_for(cfg_d, run.seed, dev,
-                                                  extract_isosurface)
+        pts, cols, rows, count = scene.source(run.cell).points(
+            cfg_d, run.seed, dev)
         prog_points = pts.cpu().numpy()
         g = from_points(pts, cols, opacity=float(sc["opacity"]), device=dev)
         del pts, cols
@@ -180,9 +179,7 @@ def check_serve(run, cfg_d, prog_points, rows, count, kept, focal, dev):
     prec = reference.Precision("f32")
     out = {}
     with prec.backend_flags():
-        field = fields.make_field(cfg_d["field"], cfg_d["resolution"], dev)
-        allpts = fields.crossings(field, float(cfg_d["iso"]))
-        del field
+        allpts = scene.source(run.cell).reference_points(cfg_d, dev)
         if allpts.shape[0] != count:
             return {"points_gap": float("inf")}
         pts = allpts[torch.from_numpy(rows).to(dev)]

@@ -127,7 +127,6 @@ def run_train(run: Run):
     from repro_torch.core.pipeline import prepare_timestep
     from repro_torch.core.tiling import TileGrid
     from repro_torch.core.train import GSTrainCfg
-    from repro_torch.data.isosurface import extract_isosurface
     from repro_torch.kernels import rasterize
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.runtime.checkpoint import tree_map
@@ -144,8 +143,8 @@ def run_train(run: Run):
     th, tw, K = int(tc["tile_h"]), int(tc["tile_w"]), int(tc["K"])
 
     with run.spans.span("setup.points"):
-        pts, cols, rows, count = scene.points_for(cfg_d, run.seed, dev,
-                                                  extract_isosurface)
+        pts, cols, rows, count = scene.source(run.cell).points(
+            cfg_d, run.seed, dev)
         points, colors = pts.cpu().numpy(), cols.cpu().numpy()
         prog_points = points.copy() if rank0 else None
         del pts, cols
@@ -327,9 +326,7 @@ def check_train(run, cfg_d, prog_points, rows, count, prog_losses, m1, p0,
     out = {}
     shape = dict(width=W, height=H, tile_h=th, tile_w=tw, K=K)
     with prec.backend_flags():
-        field = fields.make_field(cfg_d["field"], cfg_d["resolution"], dev)
-        allpts = fields.crossings(field, float(cfg_d["iso"]))
-        del field
+        allpts = scene.source(run.cell).reference_points(cfg_d, dev)
         if allpts.shape[0] != count:
             out["points_gap"] = float("inf")
             return out

@@ -1,9 +1,9 @@
 """Small sizes and a runner for the benchmark's CPU tests: a cell of
 ``BENCHMARK.json`` driven on the CPU at a size a test run holds (the
 harness's look for a card skipped), and its ranks for a many-card cell
-(gloo)."""
+(gloo).  Each configuration's small twin is ``small/<config>.json`` beside
+this file, found by name."""
 
-import copy
 import json
 import os
 import socket
@@ -20,44 +20,42 @@ for p in (str(BENCH), str(ROOT / "src")):
 from gsbench import manifest  # noqa: E402
 from gsbench.harness import Run  # noqa: E402
 
-TRAIN = {"tile_h": 8, "tile_w": 16, "K": 16, "capacity_factor": 1.3,
-         "ghost_frac": 0.03, "masks": True, "dtype_policy": "f32",
-         "init_opacity": 0.6, "gt_opacity": 0.95}
-CONFIGS = {
-    "kingsnake": {"field": "gyroid", "iso": 0.0, "resolution": 20,
-                  "max_crossings": 20000, "points": 2500, "views": 4,
-                  "image": 64, "partitions": 2, "train": TRAIN,
-                  "serve": {"tile_h": 16, "tile_w": 16, "K": 16,
-                            "max_batch": 4, "cache_entries": 64,
-                            "opacity": 0.9}},
-    "rayleigh_taylor": {"field": "rayleigh_taylor", "iso": 0.0,
-                        "resolution": 24, "max_crossings": 20000,
-                        "points": 3000, "views": 4, "image": 64,
-                        "partitions": 4, "train": TRAIN},
-}
+
+def twin(config: str, bench: Path = BENCH) -> dict:
+    """Configuration ``config``'s small twin, ``tests/small/<config>.json``
+    of the benchmark at ``bench``."""
+    with open(bench / "tests" / "small" / f"{config}.json") as f:
+        return json.load(f)
 
 
-def small_cell(workload: str) -> "manifest.Cell":
-    """``workload`` at the small size: its configuration's small twin,
-    four viewers."""
-    man = manifest.load()
+#: every small twin of this benchmark, by configuration
+CONFIGS = {p.stem: twin(p.stem) for p in sorted(
+    (BENCH / "tests" / "small").glob("*.json"))}
+
+
+def small_cell(workload: str, bench: Path = BENCH) -> "manifest.Cell":
+    """``workload`` of the benchmark at ``bench`` (its ``BENCHMARK.json``
+    beside it) at the small size: its configuration's small twin, four
+    viewers."""
+    man = manifest.load(bench.parent / "BENCHMARK.json")
     spec = next(w for w in man["workloads"] if w["name"] == workload)
-    tr = json.load(open(BENCH / "traffic" / f"{spec['traffic']}.json"))
+    tr = json.load(open(bench / "traffic" / f"{spec['traffic']}.json"))
     if tr["kind"] != "train":
         tr.update(viewers=4, check_max=4)
-    return manifest.Cell(man, workload,
-                         config=copy.deepcopy(CONFIGS[spec["config"]]),
-                         traffic=tr)
+    return manifest.Cell(man, workload, bench,
+                         config=twin(spec["config"], bench), traffic=tr)
 
 
-def drive(workload: str, seed: int = 2**31 + 5, seconds: float = 1.0):
-    """One run of ``workload`` on the CPU -> the driver's result.  The
-    process's thread count and process group are left as they were."""
+def drive(workload: str, seed: int = 2**31 + 5, seconds: float = 1.0,
+          bench: Path = BENCH):
+    """One run of ``workload`` of the benchmark at ``bench`` on the CPU ->
+    ``run_train`` / ``run_serve``'s result.  The process's thread count and
+    process group are left as they were."""
     import torch
     import torch.distributed as dist
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
-    cell = small_cell(workload)
+    cell = small_cell(workload, bench)
     run = Run(cell, seed, seconds, False, device="cpu")
     if cell.traffic["kind"] == "train":
         from gsbench.train import run_train as go

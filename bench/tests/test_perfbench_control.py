@@ -18,7 +18,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from gsbench import control, manifest  # noqa: E402
+from gsbench import control, manifest, scene  # noqa: E402
 from gsbench.harness import judge  # noqa: E402
 
 SMALL = {"field": "gyroid", "iso": 0.0, "resolution": 20,
@@ -37,13 +37,14 @@ def _cells():
     return [w["name"] for w in manifest.load()["workloads"]]
 
 
-def _readings(cell, cfg, seed, dev, n_views=None):
+def _readings(cell, cfg, seed, dev, n_views=None, src=scene.DENSE):
     if cell.traffic["kind"] == "train":
-        return control.train_readings(cfg, seed, dev)
+        return control.train_readings(cfg, seed, dev, src=src)
     tr = copy.deepcopy(cell.traffic)
     if n_views:
         tr["viewers"] = n_views
-    return control.serve_readings(cfg, tr, seed, dev, n=n_views or 8)
+    return control.serve_readings(cfg, tr, seed, dev, n=n_views or 8,
+                                  src=src)
 
 
 @pytest.fixture
@@ -68,7 +69,7 @@ def test_control_fails_small(workload):
 def test_control_fails_at_cell_size(workload, card):
     cell = manifest.Cell(manifest.load(), workload)
     for seed in CARD_SEEDS:
-        r = _readings(cell, cell.config, seed, card)
+        r = _readings(cell, cell.config, seed, card, src=scene.source(cell))
         ok, checks = judge(r, cell.limits)
         print(f"control {workload} seed {seed}: {checks}", flush=True)
         assert not ok, checks
@@ -91,7 +92,7 @@ def test_training_faults_at_cell_size(workload, fault, card):
     cell = manifest.Cell(manifest.load(), workload)
     for seed in CARD_SEEDS:
         r = control.train_readings(cell.config, seed, card, fault=fault,
-                                   ranks=cell.chips)
+                                   ranks=cell.chips, src=scene.source(cell))
         ok, checks = judge(r, cell.limits)
         print(f"fault {fault} {workload} seed {seed}: {checks}", flush=True)
         assert not ok, checks
